@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's main path on one NVIDIA GPU.
+"""Smoke run of the PyTorch port's two slices on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -7,14 +7,16 @@ Run it from the root of a checkout on a machine with one CUDA card and the
 CUDA toolkit (nvcc). In order, it:
 
 1. finds the card (and fails without one);
-2. builds the hand-written CUDA kernels from epidemicmodeling_torch/csrc/;
-3. holds each kernel against its plain PyTorch version on the card, float32,
-   at the shapes the main path gives it, and times both with CUDA events.
-   ekf3 runs on the pipeline's own inputs. ekf6 runs on three inputs of the
-   sweep's shape (T = 532, B = 5,875): the pipeline's own sweep chunk, whose
-   float32 costates overflow on this data (a check that the kernel runs,
-   with its errors printed), and two per-capita inputs whose states and
-   costates stay finite, one without and one with active control, both
+2. builds the four hand-written CUDA kernels from epidemicmodeling_torch/csrc/
+   (one nvcc per source, all started together) and prints their ptxas
+   register and spill lines;
+3. holds each EKS kernel against its plain PyTorch version on the card,
+   float32, at the shapes the XPRIZE path gives it, and times both with CUDA
+   events. ekf3 runs on the pipeline's own inputs. ekf6 runs on three inputs
+   of the sweep's shape (T = 532, B = 5,875): the pipeline's own sweep chunk,
+   whose float32 costates overflow on this data (a check that the kernel
+   runs, with its errors printed), and two per-capita inputs whose states
+   and costates stay finite, one without and one with active control, both
    held at the bounds;
 4. checks run_pipeline on a small input against the same call with the
    kernels swapped for their plain versions (same trained parameters, same
@@ -22,7 +24,24 @@ CUDA toolkit (nvcc). In order, it:
 5. drives run_pipeline at the XPRIZE size (235 regions, 440 training days
    plus a 92-day horizon, 250 epsilons in chunks of 25, 500 Monte-Carlo
    schedules) cold then warm, counts the kernel launches of the warm run and
-   checks its outputs.
+   checks its outputs;
+6. holds the diffusion-stencil kernel against its plain version (both
+   schemes, four shapes up to 8191 x 8193) and times kernel, plain version
+   and one conv2d as a yardstick;
+7. drives the spatial stack's three entry points on the card without
+   device=: diffusion_rollout (2048 x 2048, 249 steps, both schemes),
+   walking_sources_sim (1024 x 1024, 64 walkers, 500 steps) and
+   population_motion_sim (20,000 agents in the default environment, 200
+   steps, cold then warm), each with its checks and launch counts;
+8. holds the pairwise-force kernel against its plain version at N = 20,000
+   (uniform positions and three frames of the sim's own trajectory) and times
+   both, then times the kernel alone at N = 100,000 and holds 2,048 sampled
+   rows against the plain law for those rows. Each agent's force is held on
+   its own scale, the sum of the magnitudes of its terms (with slack for
+   terms at the law's discontinuities, the optimal distance and the
+   cutoff, where float32 rounding of a distance decides), and four mutants
+   of the plain law (no cutoff, no attraction, no obstacles, obstacle
+   weight off by 20%) must read above the same bound.
 
 Every failed check raises, so the exit code is non-zero. Only when all
 phases pass does it print the kernel JSON line, the card's name and power
@@ -32,9 +51,11 @@ limit, and, last, {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -43,13 +64,19 @@ from epidemicmodeling_torch.control import epsilon_grid, random_npi_schedules
 from epidemicmodeling_torch.data import (NPI_MAXES_DEFAULT,
                                          build_region_batch,
                                          preprocess_region, synthetic_regions)
-from epidemicmodeling_torch.ops.cuda import build, ekf3_kernel, ekf6_kernel
+from epidemicmodeling_torch.ops.cuda import (build, ekf3_kernel, ekf6_kernel,
+                                             pairwise_kernel, stencil_kernel)
 from epidemicmodeling_torch.pipelines import (PipelineConfig, run_pipeline,
                                               trained_params_from_numpy)
 from epidemicmodeling_torch.pipelines.core import (
     device_batch, ekf3_lane_inputs, pareto_prep, region_init, stage_params,
     sweep_lane_inputs, to_tensor, train_regions)
 from epidemicmodeling_torch.regression import nnls_with_intercept
+from epidemicmodeling_torch.spatial import (PopulationSimConfig,
+                                            diffusion_rollout,
+                                            population_motion_sim)
+from epidemicmodeling_torch.spatial.agents import default_environment
+from epidemicmodeling_torch.spatial.walkers import walking_sources_sim
 from tests._torch_helpers import (make_inputs, masked_err, packed_args,
                                   scaled_err)
 
@@ -78,7 +105,73 @@ KERNELS = {
     "ekf6": dict(run=ekf6_kernel.ekf6, plain=ekf6_kernel.ekf6_plain,
                  source="epidemicmodeling_torch/csrc/ekf6.cu",
                  replaces="epidemicmodeling_tpu/ops/pallas/ekf6_kernel.py:446"),
+    "stencil": dict(
+        run=stencil_kernel.stencil, plain=stencil_kernel.stencil_plain,
+        source="epidemicmodeling_torch/csrc/stencil.cu",
+        replaces="epidemicmodeling_tpu/ops/pallas/stencil.py:44",
+        also_replaces="epidemicmodeling_tpu/ops/pallas/stencil.py:82"),
+    "pairwise": dict(
+        run=pairwise_kernel.social_forces,
+        plain=pairwise_kernel.social_forces_plain,
+        source="epidemicmodeling_torch/csrc/pairwise.cu",
+        replaces="epidemicmodeling_tpu/ops/pallas/pairwise.py:79"),
 }
+LAUNCH_COUNTERS = {"ekf3": ekf3_kernel, "ekf6": ekf6_kernel,
+                   "stencil": stencil_kernel, "pairwise": pairwise_kernel}
+
+# The card's published peaks (H100 SXM, 700 W):
+# device memory and float32 outside the tensor cores.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_PER_S = 67e12
+# float32 operations per lane and time step of the EKS kernels (forward +
+# backward), counted from csrc/ekf3.cu and csrc/ekf6.cu as written: the dense
+# M x M products (2M^3 - M^2 each), the Joseph update, the Cholesky gain and
+# the bang-bang law, every division and square root counted as one
+EKF_OPS_PER_LANE_STEP = {"ekf3": 610, "ekf6": 4300}
+# float32 operations per pair of the force law (csrc/pairwise.cu): two
+# differences, two squares and a sum, opt_dist - d, w * sign, d2 * d, two
+# products and two sums, plus the square root and the division
+PAIR_OPS = 14
+# per interior cell of one stencil step: 4-neighbour 7, 8-neighbour 12
+STENCIL_OPS = {False: 7, True: 12}
+
+# the spatial phases: the stencil's float32 bound is the JAX package's
+# (bench.py:448)
+STENCIL_BOUND = 3e-7
+# The pairwise check holds each agent's force on its own scale: per row and
+# component, |F_kernel - F_plain| <= PAIRWISE_ROW_BOUND * sum_k |t_k| +
+# slack, sum_k |t_k| being the sum of that row's force terms
+# (pairwise_kernel.pair_terms) and so the scale of its float32 roundoff.
+# The law is discontinuous where d crosses the optimal distance (the sign
+# flips) and the cutoff (the term vanishes), so a term whose d lies within
+# rounding of either may take either value: the slack is sum 2 |w| / d^2
+# over the row's pairs within BOUNDARY_REL of one. The bound must also tell
+# the kernel from these mutants of the plain law, each of which it checks
+# reads above it.
+PAIRWISE_ROW_BOUND = 1e-4
+BOUNDARY_REL = 2e-6
+PAIRWISE_MUTANTS = {
+    "no cutoff": lambda obs, cfg: (obs, dataclasses.replace(
+        cfg, no_further_effect_dist=float("inf"))),
+    # sign(inf - d) = +1: every subject within the cutoff repels
+    "no attraction": lambda obs, cfg: (obs, dataclasses.replace(
+        cfg, inter_subject_opt_dist=float("inf"))),
+    "no obstacles": lambda obs, cfg: (obs[:0], cfg),
+    "w_so x 1.2": lambda obs, cfg: (obs, dataclasses.replace(
+        cfg, subject_obstacle_weight=1.2 * cfg.subject_obstacle_weight)),
+}
+ROW_CHUNK = 2048
+# dx != dy so that an ax/ay axis swap cannot cancel out
+STENCIL_D, STENCIL_DT, STENCIL_DX, STENCIL_DY = 1e-1, 0.004, 0.1, 0.14
+STENCIL_SHAPES = ((51, 51), (234, 167), (2048, 2048), (8191, 8193))
+STENCIL_TIMED = ((2048, 2048), (8191, 8193))
+# the example's parameters (examples/spatial_sims.py:30-31)
+ROLLOUT_L, ROLLOUT_STEPS = 2048, 249
+WALK_L, WALKERS, WALK_STEPS = 1024, 64, 500
+SIM_N, SIM_STEPS = 20_000, 200
+SIM_FRAMES = (0, 100, 199)
+SIM_PATH = f"population_motion_sim (N={SIM_N}, {SIM_STEPS} steps, warm)"
+BIG_N, BIG_ROWS = 100_000, 2048
 
 
 def log(msg: str) -> None:
@@ -137,6 +230,36 @@ def cuda_ms(fn, reps: int = 5) -> float:
 def rel_err(a, b) -> float:
     return float((torch.abs(a.double() - b.double())
                   / torch.abs(b.double())).max())
+
+
+def reset_launches() -> None:
+    for mod in LAUNCH_COUNTERS.values():
+        mod.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: mod.launches for name, mod in LAUNCH_COUNTERS.items()}
+
+
+def bound(nbytes: float, ops: float):
+    """(least time in ms, what sets it): the bytes over the card's memory
+    rate or the float32 operations over its peak, whichever is larger."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_F32_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ekf_bound(name: str, T: int, B: int):
+    """Bound of one ekf3 / ekf6 call at (T, B): every input read once and
+    every returned output written once, float32."""
+    if name == "ekf3":
+        per_tb = 12 + 2 + 3 * 3        # u, x, Rv; S_SMOOTH, S_PLUS, S_MINUS
+        per_b = 11 + 2 * 12 + 3 + 9 + 3 + 9
+    else:
+        per_tb = 12 + 2 + 6 + 12 + 6   # u, x, Rv; S_SMOOTH, U_SM, S_PLUS
+        per_b = 14 + 4 * 12 + 6 + 36 + 6 + 36
+    return bound(4 * (T * B * per_tb + B * per_b),
+                 EKF_OPS_PER_LANE_STEP[name] * T * B)
 
 
 def per_capita_case(active: bool):
@@ -314,8 +437,7 @@ def main_path(device, bt, bf, actual):
     eps = epsilon_grid(N_EPS).numpy()
 
     def run():
-        ekf3_kernel.launches = 0
-        ekf6_kernel.launches = 0
+        reset_launches()
         t0 = time.perf_counter()
         res = run_pipeline(bt, bf, actual, T_HIST, WEIGHTS, eps, MINS,
                            NPI_MAXES_DEFAULT, T_HIST, cfg,
@@ -323,8 +445,7 @@ def main_path(device, bt, bf, actual):
                            dtype=F32, device=device)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        return res, wall, {"ekf3": ekf3_kernel.launches,
-                           "ekf6": ekf6_kernel.launches}
+        return res, wall, read_launches()
 
     for tag in ("cold", "warm"):
         res, wall, launches = run()
@@ -411,6 +532,356 @@ def nnls_counts(device, bt):
         f"in {time.perf_counter() - t0:.3f}s")
 
 
+def stencil_phase(device):
+    """The stencil kernel against its plain version on fields in [0, 1),
+    both schemes, at STENCIL_SHAPES; kernel, plain version and the conv2d
+    yardstick timed at STENCIL_TIMED. Returns one dict per case."""
+    ax = STENCIL_D * STENCIL_DT / STENCIL_DX ** 2
+    ay = STENCIL_D * STENCIL_DT / STENCIL_DY ** 2
+    axy8 = STENCIL_D * STENCIL_DT / (STENCIL_DX ** 2 + STENCIL_DY ** 2)
+    gen = torch.Generator(device).manual_seed(5)
+    out = []
+    for shape in STENCIL_SHAPES:
+        C = torch.rand(shape, generator=gen, device=device)
+        for eight in (False, True):
+            axy = axy8 if eight else 0.0
+            got = stencil_kernel.stencil(C, ax, ay, axy)
+            ref = stencil_kernel.stencil_plain(C, ax, ay, axy)
+            torch.cuda.synchronize()
+            check(got.device == device and got.dtype == F32,
+                  f"stencil {shape}: output not float32 on {device}")
+            m = dict(shape=shape, eight=eight,
+                     abs_err=float(torch.abs(got - ref).max()), ms=None)
+            line = (f"kernel stencil [{shape[0]}x{shape[1]}, "
+                    f"{8 if eight else 4}-neighbour]: "
+                    f"max_abs_err={m['abs_err']:.3e}")
+            if shape in STENCIL_TIMED:
+                m["ms"] = cuda_ms(lambda: stencil_kernel.stencil(
+                    C, ax, ay, axy), reps=20)
+                m["plain_ms"] = cuda_ms(lambda: stencil_kernel.stencil_plain(
+                    C, ax, ay, axy))
+                m["library_ms"], lib_err = conv2d_yardstick(C, ax, ay, axy,
+                                                            ref)
+                m["bound_ms"], m["bound_by"] = bound(
+                    2 * 4 * shape[0] * shape[1],
+                    STENCIL_OPS[eight] * (shape[0] - 2) * (shape[1] - 2))
+                line += (f" kernel_ms={m['ms']:.4f} "
+                         f"plain_ms={m['plain_ms']:.4f} "
+                         f"conv2d_ms={m['library_ms']:.4f} "
+                         f"(conv2d vs plain interior {lib_err:.2e}) "
+                         f"bound_ms={m['bound_ms']:.4f} ({m['bound_by']})")
+            log(line)
+            check(m["abs_err"] <= STENCIL_BOUND,
+                  f"stencil {shape} eight={eight}: {m['abs_err']:.3e} > "
+                  f"{STENCIL_BOUND}")
+            out.append(m)
+    return out
+
+
+def conv2d_yardstick(C, ax, ay, axy, ref):
+    """One torch.nn.functional.conv2d with the 3 x 3 weights over the
+    interior, TF32 off: its time (ms) and its largest difference from the
+    plain version's interior. A yardstick only: the port never calls it."""
+    c0 = 1.0 - 2.0 * ax - 2.0 * ay - 4.0 * axy
+    w = torch.tensor([[axy, ax, axy], [ay, c0, ay], [axy, ax, axy]],
+                     dtype=C.dtype, device=C.device)[None, None]
+    x = C[None, None]
+    conv = lambda: torch.nn.functional.conv2d(x, w)
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        ms = cuda_ms(conv, reps=20)
+        err = float(torch.abs(conv()[0, 0] - ref[1:-1, 1:-1]).max())
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    return ms, err
+
+
+def rollout_phase(device):
+    """diffusion_rollout on the card without device=, both schemes, at the
+    example's parameters on a 2048 x 2048 field with the reference's two
+    point sources (testCellularAutomataForPDESolution.m:25-26)."""
+    L = ROLLOUT_L
+    C0 = np.zeros((L, L))
+    C0[round(L / 2) - 1, round(L / 2) - 1] = 1.0
+    C0[round(L / 3) - 1, round(L / 4) - 1] = 1.0
+    for nb in (4, 8):
+        reset_launches()
+        t0 = time.perf_counter()
+        traj = diffusion_rollout(C0, 1e-1, 0.01, 0.1, 0.1, ROLLOUT_STEPS,
+                                 neighborhood=nb, dtype=F32)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = read_launches()
+        # the support grows one cell per step and never reaches the frozen
+        # boundary, so the interior mass stays 2
+        mass_err = float(torch.abs(traj.sum(dim=(1, 2)) / 2.0 - 1.0).max())
+        log(f"diffusion_rollout {L}x{L} x {ROLLOUT_STEPS} steps, "
+            f"{nb}-neighbour: wall={wall:.3f}s mass_rel_err={mass_err:.2e} "
+            f"launches={n}")
+        check(traj.device == device
+              and tuple(traj.shape) == (ROLLOUT_STEPS + 1, L, L),
+              f"rollout: trajectory not (steps + 1, L, L) on {device}")
+        check(bool(torch.isfinite(traj).all()), "rollout: non-finite field")
+        check(mass_err <= 1e-4, f"rollout: mass {mass_err:.2e} > 1e-4")
+        check(n["stencil"] == ROLLOUT_STEPS,
+              f"rollout: {n['stencil']} stencil launches, expected "
+              f"{ROLLOUT_STEPS}")
+        del traj
+
+
+def walkers_phase(device):
+    """walking_sources_sim on the card without device=, cold then warm (the
+    cold call also loads the PyTorch kernels it is the first to use)."""
+    injected = WALKERS * WALK_STEPS * 1.0
+    for tag in ("cold", "warm"):
+        reset_launches()
+        t0 = time.perf_counter()
+        C, traj = walking_sources_sim(
+            WALK_L, WALK_L, WALKERS, WALK_STEPS, 1e-2, 0.01, 0.1, 0.1, 1.0,
+            torch.Generator(device).manual_seed(0), dtype=F32)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = read_launches()
+        total = float(C.sum(dtype=torch.float64))
+        log(f"walking_sources_sim {tag} {WALK_L}x{WALK_L}, {WALKERS} walkers "
+            f"x {WALK_STEPS} steps: wall={wall:.3f}s mass={total:.3f} of "
+            f"{injected:.0f} injected launches={n}")
+    check(C.device == device and traj.device == device,
+          f"walkers: output not on {device}")
+    check(tuple(traj.shape) == (WALK_STEPS, WALKERS, 2), "walkers: shape")
+    check(bool(torch.isfinite(C).all() and (C >= 0).all()),
+          "walkers: field not finite and >= 0")
+    check(0 < total <= injected * (1 + 1e-5),
+          f"walkers: mass {total} not in (0, {injected}]")
+    check(n["stencil"] == WALK_STEPS,
+          f"walkers: {n['stencil']} stencil launches, expected {WALK_STEPS}")
+
+
+def sim_phase(device):
+    """population_motion_sim at N = 20,000 in the default environment on
+    the card without device=, cold then warm, then once more under
+    torch.profiler. Returns (the warm result, its launch counts)."""
+    cfg = PopulationSimConfig(n_subjects=SIM_N, force_backend="pallas")
+
+    def run():
+        reset_launches()
+        t0 = time.perf_counter()
+        res = population_motion_sim(cfg, SIM_STEPS,
+                                    torch.Generator(device).manual_seed(0),
+                                    dtype=F32)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0, read_launches()
+
+    for tag in ("cold", "warm"):
+        res, wall, n = run()
+        log(f"population_motion_sim {tag}: N={SIM_N} steps={SIM_STEPS} "
+            f"wall={wall:.3f}s ({wall / SIM_STEPS * 1e3:.3f} ms/step) "
+            f"launches={n}")
+    device_time(run, wall)
+    # float32 clips: a limit rounds to the nearest float32, up to 1e-7 over
+    slack = 1 + 1e-6
+    p, v, a = res.p, res.v, res.a
+    check(all(t.device == device for t in res),
+          f"sim: output not on {device}")
+    check(tuple(p.shape) == (SIM_STEPS, SIM_N, 2), "sim: shape")
+    check(bool((p[..., 0] >= cfg.x_min).all() and (p[..., 1] >= cfg.y_min)
+               .all() and (p[..., 0] <= cfg.x_max * slack).all()
+               and (p[..., 1] <= cfg.y_max * slack).all()),
+          "sim: a position left the arena")
+    check(bool((v.abs() <= cfg.v_max * slack).all()), "sim: |v| > v_max")
+    check(bool((a.abs() <= cfg.a_max * slack).all()), "sim: |a| > a_max")
+    check(bool(torch.isfinite(res.C).all()) and float(res.C.sum()) > 0,
+          "sim: field not finite with a positive sum")
+    check(n["pairwise"] == SIM_STEPS and n["stencil"] == 2 * SIM_STEPS,
+          f"sim: launches {n}, expected pairwise {SIM_STEPS}, stencil "
+          f"{2 * SIM_STEPS}")
+    return res, n
+
+
+def law_rows(pos, obs, cfg, rows):
+    """The plain float32 law on the agents ``rows``, ROW_CHUNK rows at a
+    time: (forces (R, 2), the rows' scale sum_k |t_k| (R, 2), their slack
+    for terms at a discontinuity of the law (R, 1))."""
+    src = torch.cat([pos, obs])
+    N, M = pos.shape[0], src.shape[0]
+    subject = torch.arange(M, device=pos.device) < N
+    w = torch.where(subject, abs(cfg.subject_subject_weight),
+                    abs(cfg.subject_obstacle_weight))
+    opt, cut = cfg.inter_subject_opt_dist, cfg.no_further_effect_dist
+    f, scale, slack = [], [], []
+    for part in rows.split(ROW_CHUNK):
+        tx, ty = pairwise_kernel.pair_terms(pos, obs, cfg, part)
+        f.append(torch.stack([tx.sum(dim=1), ty.sum(dim=1)], dim=-1))
+        scale.append(torch.stack([tx.abs().sum(dim=1), ty.abs().sum(dim=1)],
+                                 dim=-1))
+        d = torch.cdist(pos[part], src,
+                        compute_mode="donot_use_mm_for_euclid_dist")
+        near = (((d - opt).abs() <= BOUNDARY_REL * opt) & subject
+                | ((d - cut).abs() <= BOUNDARY_REL * cut))
+        slack.append(torch.where(near, 2 * w / d ** 2, 0.0)
+                     .sum(dim=1, keepdim=True))
+    return torch.cat(f), torch.cat(scale), torch.cat(slack)
+
+
+def row_err(a, b, scale, slack=0.0) -> float:
+    """The largest (|a - b| - slack) / scale over rows and components."""
+    scale = torch.clamp_min(scale, torch.finfo(F32).tiny)
+    return float((torch.clamp_min(torch.abs(a - b) - slack, 0.0)
+                  / scale).max())
+
+
+def hold_pairwise(tag, got, ref, pos, obs, cfg, rows):
+    """The kernel's forces ``got`` on ``rows`` against the plain version's
+    ``ref``, row by row on each row's scale; the same reading of each
+    mutant of the plain law against ``ref``; and, as a statistic, the
+    largest error over the largest force. Logs one line; returns a dict."""
+    _, scale, slack = law_rows(pos, obs, cfg, rows)
+    abs_err = float(torch.abs(got - ref).max())
+    m = dict(tag=tag, N=pos.shape[0], O=obs.shape[0], rows=len(rows),
+             abs_err=abs_err, row_err=row_err(got, ref, scale, slack),
+             scaled_err=abs_err / float(torch.abs(ref).max()), ms=None,
+             mutants={name: row_err(law_rows(pos, *mutant(obs, cfg),
+                                             rows)[0], ref, scale, slack)
+                      for name, mutant in PAIRWISE_MUTANTS.items()})
+    log(f"kernel pairwise [{tag}, N={m['N']}, O={m['O']}, {m['rows']} "
+        f"rows]: row_err={m['row_err']:.3e} (bound {PAIRWISE_ROW_BOUND}; "
+        f"{row_err(got, ref, scale):.3e} without slack, "
+        f"{int((slack > 0).sum())} rows with a boundary pair) "
+        f"max_abs_err={abs_err:.3e} max_abs_err/max|F|="
+        f"{m['scaled_err']:.3e}; mutants' row_err: "
+        + " ".join(f"{n}={v:.3e}" for n, v in m["mutants"].items()))
+    return m
+
+
+def pairwise_phase(device, sim_p):
+    """The pairwise kernel against its plain version at N = 20,000 in the
+    default environment: uniform positions (timed) and frames of the sim's
+    trajectory; then the kernel alone at N = 100,000 (timed), with sampled
+    rows held against the plain law for those rows. Every case is held row
+    by row at PAIRWISE_ROW_BOUND, and every mutant must read above it.
+    Returns one dict per case."""
+    cfg = PopulationSimConfig(n_subjects=SIM_N)
+    _, obs_np = default_environment(cfg)
+    obs = torch.tensor(obs_np, dtype=F32, device=device)
+    O = obs.shape[0]
+    gen = torch.Generator(device).manual_seed(7)
+    lo = torch.tensor([cfg.x_min, cfg.y_min], device=device)
+    span = torch.tensor([cfg.x_max - cfg.x_min, cfg.y_max - cfg.y_min],
+                        device=device)
+    uniform = lambda n: lo + span * torch.rand((n, 2), generator=gen,
+                                               device=device)
+    cases = [("uniform", uniform(SIM_N))] + [
+        (f"sim step {t}", sim_p[t].contiguous()) for t in SIM_FRAMES]
+    out = []
+    for tag, pos in cases:
+        got = pairwise_kernel.social_forces(pos, obs, cfg)
+        ref = pairwise_kernel.social_forces_plain(pos, obs, cfg)
+        torch.cuda.synchronize()
+        check(got.device == device and bool(torch.isfinite(got).all()),
+              f"pairwise {tag}: output not finite on {device}")
+        m = hold_pairwise(tag, got, ref, pos, obs, cfg,
+                          torch.arange(SIM_N, device=device))
+        del ref
+        if tag == "uniform":
+            m["ms"] = cuda_ms(lambda: pairwise_kernel.social_forces(
+                pos, obs, cfg))
+            m["plain_ms"] = cuda_ms(
+                lambda: pairwise_kernel.social_forces_plain(pos, obs, cfg))
+            m["bound_ms"], m["bound_by"] = bound(
+                4 * (2 * SIM_N + 2 * O + 2 * SIM_N),
+                PAIR_OPS * SIM_N * (SIM_N + O))
+            log(f"kernel pairwise [uniform, N={SIM_N}, O={O}]: "
+                f"kernel_ms={m['ms']:.3f} plain_ms={m['plain_ms']:.3f} "
+                f"bound_ms={m['bound_ms']:.4f} ({m['bound_by']})")
+        out.append(m)
+
+    cfg_big = PopulationSimConfig(n_subjects=BIG_N)
+    pos = uniform(BIG_N)
+    ms = cuda_ms(lambda: pairwise_kernel.social_forces(pos, obs, cfg_big))
+    got = pairwise_kernel.social_forces(pos, obs, cfg_big)
+    check(bool(torch.isfinite(got).all()), "pairwise N=100k: non-finite")
+    rows = torch.randperm(BIG_N, generator=gen, device=device)[:BIG_ROWS]
+    ref = law_rows(pos, obs, cfg_big, rows)[0]
+    out.append(hold_pairwise("uniform, sampled", got[rows], ref, pos, obs,
+                             cfg_big, rows))
+    big_bound, big_by = bound(4 * (4 * BIG_N + 2 * O),
+                              PAIR_OPS * BIG_N * (BIG_N + O))
+    log(f"kernel pairwise [uniform, N={BIG_N}, O={O}]: kernel_ms={ms:.3f} "
+        f"bound_ms={big_bound:.4f} ({big_by})")
+    for m in out:
+        check(m["row_err"] <= PAIRWISE_ROW_BOUND,
+              f"pairwise {m['tag']} N={m['N']}: row_err {m['row_err']:.3e} "
+              f"> {PAIRWISE_ROW_BOUND}")
+        for name, v in m["mutants"].items():
+            check(v > PAIRWISE_ROW_BOUND,
+                  f"pairwise {m['tag']} N={m['N']}: mutant {name} reads "
+                  f"{v:.3e} <= {PAIRWISE_ROW_BOUND}, the bound cannot tell "
+                  "it from the kernel")
+    return out
+
+
+def kernel_entries(measured, xprize_launches, stencil_cases, sim_launches,
+                   pairwise_cases):
+    """One entry per kernel for the JSON line: its launches on its path's
+    warm run, its largest error against the plain version, and kernel,
+    plain-version, bound and library times at its largest timed shape
+    (both versions timed). Fails if a kernel never launched on its path."""
+    kernels = []
+    for name in ("ekf3", "ekf6"):
+        big = max((m for m in measured[name] if m["ms"] is not None),
+                  key=lambda m: m["T"] * m["B"])
+        b_ms, b_by = ekf_bound(name, big["T"], big["B"])
+        kernels.append(dict(
+            max_abs_err=max(m["abs_err"] for m in measured[name]),
+            ms=big["ms"], plain_ms=big["plain_ms"], bound_ms=b_ms,
+            bound_by=b_by, library_ms=None, launches=xprize_launches[name],
+            path="run_pipeline (XPRIZE size, warm)",
+            shape=f"T={big['T']} B={big['B']}"))
+    big = [m for m in stencil_cases
+           if m["ms"] is not None and m["eight"]][-1]
+    kernels.append(dict(
+        max_abs_err=max(m["abs_err"] for m in stencil_cases), ms=big["ms"],
+        plain_ms=big["plain_ms"], bound_ms=big["bound_ms"],
+        bound_by=big["bound_by"], library_ms=big["library_ms"],
+        launches=sim_launches["stencil"],
+        path=SIM_PATH,
+        shape=f"{big['shape'][0]}x{big['shape'][1]} 8-neighbour float32"))
+    timed = next(m for m in pairwise_cases if m["ms"] is not None)
+    kernels.append(dict(
+        max_abs_err=max(m["abs_err"] for m in pairwise_cases),
+        max_row_err=max(m["row_err"] for m in pairwise_cases),
+        min_mutant_row_err=min(v for m in pairwise_cases
+                               for v in m["mutants"].values()),
+        max_scaled_err=max(m["scaled_err"] for m in pairwise_cases),
+        ms=timed["ms"], plain_ms=timed["plain_ms"],
+        bound_ms=timed["bound_ms"], bound_by=timed["bound_by"],
+        library_ms=None, launches=sim_launches["pairwise"],
+        path=SIM_PATH,
+        shape=f"N={timed['N']} O={timed['O']} float32"))
+    kernels = [dict(name=name, route="cuda",
+                    **{f: v for f, v in KERNELS[name].items()
+                       if f not in ("run", "plain")}, **k)
+               for name, k in zip(KERNELS, kernels)]
+    for k in kernels:
+        check(k["launches"] > 0, f"{k['name']} never launched on its path")
+    return kernels
+
+
+def build_all():
+    """Build every kernel, one nvcc per source, all started together, and
+    print each one's ptxas register and spill lines."""
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        reports = list(pool.map(lambda n: build.build(n)[1], KERNELS))
+    for name, report in zip(KERNELS, reports):
+        for line in report.splitlines():
+            if any(w in line for w in ("Compiling entry", "registers",
+                                       "spill")):
+                log(f"  ptxas {name}: {line.strip()}")
+    log(f"build: {time.perf_counter() - t0:.1f}s")
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: this smoke run needs one card")
@@ -420,16 +891,9 @@ def main():
     log(f"device: {kind} | nvidia-smi: {card} | torch {torch.__version__} "
         f"cuda {torch.version.cuda} | device_count "
         f"{torch.cuda.device_count()}")
+    build_all()
 
-    t0 = time.perf_counter()
-    for name in KERNELS:
-        _, report = build.build(name)
-        for line in report.splitlines():
-            if any(w in line for w in ("Compiling entry", "registers",
-                                       "spill")):
-                log(f"  ptxas {name}: {line.strip()}")
-    log(f"build: {time.perf_counter() - t0:.1f}s")
-
+    # the XPRIZE path (slice 1)
     bt, bf, actual, _ = xprize_inputs(R_REGIONS, T_HIST, HORIZON, seed=0)
     cfg = PipelineConfig(backend="pallas", smoother_gain="solve",
                          pareto_chunk=CHUNK, num_monte_carlo=N_MC)
@@ -438,21 +902,19 @@ def main():
                                                        device):
         measured.setdefault(name, []).append(
             compare_kernel(name, tag, args, device, bounds, timed))
-
     small_reference_check(device)
-    _, _, launches = main_path(device, bt, bf, actual)
+    _, _, xprize_launches = main_path(device, bt, bf, actual)
     nnls_counts(device, bt)
 
-    kernels = []
-    for name, k in KERNELS.items():
-        big = max((m for m in measured[name] if m["ms"] is not None),
-                  key=lambda m: m["T"] * m["B"])
-        kernels.append(dict(
-            name=name, route="cuda", source=k["source"],
-            replaces=k["replaces"], launches=launches[name],
-            max_abs_err=max(m["abs_err"] for m in measured[name]),
-            ms=big["ms"], plain_ms=big["plain_ms"],
-            shape=f"T={big['T']} B={big['B']}"))
+    # the spatial stack (slice 2)
+    stencil_cases = stencil_phase(device)
+    rollout_phase(device)
+    walkers_phase(device)
+    sim, sim_launches = sim_phase(device)
+    pairwise_cases = pairwise_phase(device, sim.p)
+
+    kernels = kernel_entries(measured, xprize_launches, stencil_cases,
+                             sim_launches, pairwise_cases)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

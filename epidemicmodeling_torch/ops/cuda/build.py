@@ -1,9 +1,10 @@
 """Build and load the hand-written CUDA kernels (csrc/*.cu).
 
-Each kernel source is compiled at first use by ``nvcc`` into a shared
-library with a plain C interface, keyed by a hash of its sources and flags,
-under ``build/torch_kernels/`` at the root of the checkout, and loaded with
-ctypes. Nothing here runs at import time, so the CPU tests import every
+Each kernel is compiled at first use by ``nvcc`` into a shared library with
+a plain C interface, keyed by a hash of its own sources (``SOURCES``) and
+the flags, under ``build/torch_kernels/`` at the root of the checkout, and
+loaded with ctypes. A change to a header rebuilds only the kernels that
+include it. Nothing here runs at import time, so the CPU tests import every
 module of the port on a machine with no CUDA toolkit.
 """
 
@@ -24,6 +25,13 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 # NaN masks and IEEE division/sqrt are the kernels' semantics
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# each kernel's translation unit first, then the headers it includes
+SOURCES = {
+    "ekf3": ("ekf3.cu", "ekf_common.cuh"),
+    "ekf6": ("ekf6.cu", "ekf_common.cuh"),
+    "stencil": ("stencil.cu",),
+    "pairwise": ("pairwise.cu",),
+}
 
 _lock = threading.Lock()
 _loaded: dict = {}
@@ -42,21 +50,18 @@ def nvcc_path() -> str:
     return found
 
 
-def _sources(name: str):
-    return [CSRC / f"{name}.cu", CSRC / "ekf_common.cuh"]
-
-
 def library_path(name: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources(name):
-        h.update(src.read_bytes())
+    for src in SOURCES[name]:
+        h.update((CSRC / src).read_bytes())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> tuple[Path, str]:
-    """Compile csrc/<name>.cu unless its hashed library exists. Returns the
-    library path and the compiler's register/spill report (``-Xptxas -v``,
-    kept beside the library)."""
+    """Compile the kernel ``name`` (csrc/<SOURCES[name][0]>) unless its
+    hashed library exists. Returns the library path and the compiler's
+    register/spill report (``-Xptxas -v``, kept beside the library). Safe to
+    call for several kernels at once from threads: each runs its own nvcc."""
     so = library_path(name)
     if so.exists():
         report = so.with_suffix(".ptxas.txt")
@@ -64,12 +69,13 @@ def build(name: str) -> tuple[Path, str]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
+    unit = SOURCES[name][0]
     try:
         proc = subprocess.run(
-            [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
+            [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC / unit)],
             capture_output=True, text=True, check=False)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {name}.cu:\n{proc.stderr}")
+            raise RuntimeError(f"nvcc failed on {unit}:\n{proc.stderr}")
         os.replace(tmp, so)   # atomic: concurrent builders agree
     finally:
         if os.path.exists(tmp):
@@ -80,9 +86,9 @@ def build(name: str) -> tuple[Path, str]:
 
 
 def load(name: str, signatures: dict) -> ctypes.CDLL:
-    """Build (if needed) and load csrc/<name>.cu, declaring each C entry's
-    argument types: ``signatures`` maps entry name -> argtypes list. Every
-    entry returns an int (a cudaError_t)."""
+    """Build (if needed) and load the kernel ``name``, declaring each C
+    entry's argument types: ``signatures`` maps entry name -> argtypes list.
+    Every entry returns an int (a cudaError_t)."""
     with _lock:
         lib = _loaded.get(name)
         if lib is None:

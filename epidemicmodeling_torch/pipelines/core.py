@@ -27,6 +27,7 @@ from ..models.si_alpha import si_alpha_step_fields
 from ..ops.cuda import ekf6_kernel
 from ..ops.cuda.ekf3_kernel import ekf3_lanes, rho_from_priors
 from ..regression import nnls_with_intercept
+from ..utils.device import resolve_device
 from ..utils.math import clip_lo_hi
 from .config import PipelineConfig
 
@@ -113,15 +114,13 @@ def device_batch(batch, dtype=None, device=None):
     """Move a RegionBatch's hot fields (observations, npis, obs_noise_var)
     to ``device`` in ``dtype``. The fields that host logic reads
     (new_cases_norm, population) stay NumPy. Defaults: the device and dtype
-    the batch's observations already have, else the CPU and torch's default
-    dtype. Returns (batch, dtype, device)."""
+    the batch's observations already have, else the CUDA card (a RuntimeError
+    without one) and torch's default dtype. Returns (batch, dtype, device)."""
     obs = batch.observations
-    if device is None:
-        device = obs.device if isinstance(obs, torch.Tensor) else "cpu"
+    device = resolve_device(device, obs)
     if dtype is None:
         dtype = (obs.dtype if isinstance(obs, torch.Tensor)
                  else torch.get_default_dtype())
-    device = torch.device(device)
     t = lambda a: to_tensor(a, dtype, device)
     batch = batch._replace(observations=t(batch.observations),
                            npis=t(batch.npis),

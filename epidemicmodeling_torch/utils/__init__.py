@@ -1,3 +1,4 @@
+from .device import resolve_device
 from .math import clip_lo_hi, clip_hi_lo
 
-__all__ = ["clip_lo_hi", "clip_hi_lo"]
+__all__ = ["clip_lo_hi", "clip_hi_lo", "resolve_device"]

@@ -9,15 +9,34 @@ B = 300 lanes is not a multiple of the 128-thread block, so the ragged
 edge the kernels mask is exercised. Tolerances are those of the CPU tests
 (tests/test_ekf6_kernel.py:83-86,188-190): both sides run float32 in a
 different operation order, and roundoff compounds on the costates.
+
+The spatial kernels: the stencil on ragged grids (not multiples of its
+32 x 8 block) in both schemes and both dtypes, at atol 3e-7 in float32 (the
+JAX package's bound, bench.py:448) and rtol 1e-12 in float64 (the kernel may
+fuse a multiply and an add); the pairwise forces at N = 300 (not a multiple
+of 128) with and without obstacles, at atol 1e-5 * max|ref| (the CPU tests'
+bound, tests/test_spatial.py:153-154): the kernel sums in source order, the
+plain version in PyTorch's reduction order (a float32 sequential sum differs
+from the plain version by 3.3e-7 of the largest force at N = 300, CPU run).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from epidemicmodeling_torch.ops.cuda import ekf3_kernel, ekf6_kernel
+from epidemicmodeling_torch.ops.cuda import (ekf3_kernel, ekf6_kernel,
+                                             pairwise_kernel, stencil_kernel)
 from epidemicmodeling_torch.ops.cuda.ekf3_kernel import ekf3, ekf3_plain
 from epidemicmodeling_torch.ops.cuda.ekf6_kernel import ekf6, ekf6_plain
+from epidemicmodeling_torch.ops.cuda.pairwise_kernel import (
+    social_forces, social_forces_plain)
+from epidemicmodeling_torch.ops.cuda.stencil_kernel import (stencil,
+                                                            stencil_plain)
+from epidemicmodeling_torch.spatial import (PopulationSimConfig,
+                                            diffusion_rollout,
+                                            population_motion_sim)
+from epidemicmodeling_torch.spatial.agents import default_environment
+from epidemicmodeling_torch.spatial.walkers import walking_sources_sim
 
 from tests._torch_helpers import (make_inputs, masked_err, packed_args,
                                   scaled_err)
@@ -93,3 +112,117 @@ def test_kernels_refuse_what_they_cannot_take(cuda):
     with pytest.raises(ValueError, match="inv_monitor_len"):
         ekf6(*args6, beta=0.9, inv_monitor_len=0)
 
+
+AX, AY, AXY = 0.04, 0.0204, 0.0135
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", [(51, 51), (129, 131), (300, 257), (2, 9),
+                                   (9, 1), (3, 70)])
+def test_stencil_kernel_matches_plain(cuda, shape, dtype):
+    C = torch.rand(shape, dtype=dtype, device=cuda,
+                   generator=torch.Generator(cuda).manual_seed(sum(shape)))
+    tol = (dict(rtol=0, atol=3e-7) if dtype == torch.float32
+           else dict(rtol=1e-12, atol=0))
+    for axy in (0.0, AXY):
+        before = stencil_kernel.launches
+        got = stencil(C, AX, AY, axy)
+        torch.cuda.synchronize()
+        assert stencil_kernel.launches == before + 1
+        ref = stencil_plain(C, AX, AY, axy)
+        assert stencil_kernel.launches == before + 1
+        assert got.device == C.device and got.dtype == dtype
+        torch.testing.assert_close(got, ref, **tol)
+        out = torch.full_like(C, float("nan"))
+        assert stencil(C, AX, AY, axy, out=out) is out
+        torch.testing.assert_close(out, got, rtol=0, atol=0)
+        assert stencil_kernel.launches == before + 2
+
+
+@pytest.mark.parametrize("with_obstacles", [True, False])
+def test_pairwise_kernel_matches_plain(cuda, with_obstacles):
+    cfg = PopulationSimConfig(n_subjects=300)
+    _, obs = default_environment(cfg)
+    if not with_obstacles:
+        obs = np.zeros((0, 2))
+    rng = np.random.default_rng(6)
+    pos = rng.uniform([cfg.x_min, cfg.y_min], [cfg.x_max, cfg.y_max],
+                      (300, 2))
+    pos[1] = pos[0]                               # coincident agents
+    pos[3] = pos[2] + [cfg.inter_subject_opt_dist, 0.0]   # sign(0) = 0
+    for dtype in (torch.float32, torch.float64):
+        p = torch.tensor(pos, dtype=dtype, device=cuda)
+        o = torch.tensor(obs, dtype=dtype, device=cuda)
+        before = pairwise_kernel.launches
+        got = social_forces(p, o, cfg)
+        torch.cuda.synchronize()
+        assert pairwise_kernel.launches == before + 1
+        ref = social_forces_plain(p, o, cfg)
+        assert pairwise_kernel.launches == before + 1
+        assert got.dtype == dtype and got.shape == (300, 2)
+        assert bool(torch.isfinite(got).all())
+        scale = float(ref.abs().max())
+        assert float((got - ref).abs().max()) <= 1e-5 * scale
+
+
+def test_spatial_kernels_refuse_what_they_cannot_take(cuda):
+    C = torch.rand((6, 7), device=cuda)
+    with pytest.raises(ValueError, match="float32 or float64"):
+        stencil(C.half(), AX, AY)
+    with pytest.raises(ValueError, match="contiguous"):
+        stencil(C.T, AX, AY)
+    with pytest.raises(ValueError, match="out must"):
+        stencil(C, AX, AY, out=torch.empty((6, 7)))
+    with pytest.raises(ValueError, match="out must not"):
+        stencil(C, AX, AY, out=C)
+    cfg = PopulationSimConfig(n_subjects=20)
+    pos = torch.rand((20, 2), device=cuda) * 10
+    obs = torch.rand((5, 2), device=cuda) * 10
+    with pytest.raises(ValueError, match="float32 or float64"):
+        social_forces(pos.half(), obs, cfg)
+    with pytest.raises(ValueError, match="contiguous"):
+        social_forces(pos.T.contiguous().T, obs, cfg)
+    with pytest.raises(ValueError, match="CUDA tensors on one device"):
+        social_forces(pos, obs.cpu(), cfg)
+
+
+def test_spatial_entry_points_run_the_kernels(cuda):
+    """The three spatial entry points on the card, without device=: on a
+    card by default, through the kernels, one launch per step; the agent
+    sim against the same run on the CPU (float32 forces on both sides)."""
+    C0 = np.zeros((64, 80))
+    C0[30, 40] = 1.0
+    stencil_kernel.launches = 0
+    traj = diffusion_rollout(C0, 1e-1, 0.01, 0.1, 0.1, 25, neighborhood=8,
+                             dtype=torch.float32)
+    assert traj.device.type == "cuda" and stencil_kernel.launches == 25
+    assert abs(float(traj[-1].sum()) - 1.0) < 1e-5
+    stencil_kernel.launches = 0
+    C, pos = walking_sources_sim(40, 40, 3, 30, 1e-2, 0.01, 0.1, 0.1, 1.0,
+                                 torch.Generator(cuda).manual_seed(0))
+    assert C.device.type == "cuda" and pos.shape == (30, 3, 2)
+    assert stencil_kernel.launches == 30
+    assert float(C.sum()) <= 90.0 * (1 + 1e-5)
+
+    N, T = 300, 20
+    cfg = PopulationSimConfig(n_subjects=N, force_backend="pallas")
+    g = torch.Generator().manual_seed(3)
+    init = dict(p_init=torch.rand((N, 2), generator=g, dtype=torch.float64)
+                * torch.tensor([70.0, 50.0], dtype=torch.float64),
+                v_init=torch.zeros((N, 2), dtype=torch.float64),
+                a_init=torch.zeros((N, 2), dtype=torch.float64),
+                j_init=torch.zeros((N, 2), dtype=torch.float64))
+    noise = tuple(torch.randn((T, N, 2), generator=g, dtype=torch.float64)
+                  for _ in range(4))
+    pairwise_kernel.launches = stencil_kernel.launches = 0
+    got = population_motion_sim(cfg, T, device=cuda, noise=noise, **init)
+    assert pairwise_kernel.launches == T and stencil_kernel.launches == 2 * T
+    ref = population_motion_sim(cfg, T, device="cpu", noise=noise, **init)
+    # float32 forces summed in two orders: a near pair's O(1e3) terms cancel
+    # to an O(1) acceleration, ~6e-5 of roundoff per step carried through
+    # the integrators (a sequential float32 sum in place of the kernel moved
+    # a by 2.6e-5 over these 20 steps on the CPU); the CPU tests hold the
+    # same two float32 orders at 1e-4 (test_torch_spatial SIM_TOL "pallas")
+    for f in ("p", "v", "a", "C"):
+        torch.testing.assert_close(getattr(got, f).cpu(), getattr(ref, f),
+                                   rtol=0, atol=1e-4)

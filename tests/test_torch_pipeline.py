@@ -71,7 +71,8 @@ def _run_port(d, backend, jres, **kw):
         d["bt"], d["bf"], d["actual"], T_HIST, np.ones(12), d["eps"],
         np.zeros(12), NPI_MAXES_DEFAULT, T_HIST,
         PipelineConfig(backend=backend, **COMMON), dtype=torch.float64,
-        u_random=np.asarray(jres.monte_carlo["u_random"]), **kw)
+        u_random=np.asarray(jres.monte_carlo["u_random"]), device="cpu",
+        **kw)
 
 
 def _assert_downstream_equal(port, jres):
@@ -135,7 +136,7 @@ def test_pipeline_variants_match_jax(variant):
     got = run_pipeline(bt, bf, None, 56, np.ones(12), eps, np.zeros(12),
                        NPI_MAXES_DEFAULT, 56,
                        PipelineConfig(backend="pallas", **kw),
-                       dtype=torch.float64,
+                       dtype=torch.float64, device="cpu",
                        u_random=np.asarray(ref.monte_carlo["u_random"]))
     np.testing.assert_allclose(got.trained.a2.numpy(),
                                np.asarray(ref.trained.a2), **TOL)
@@ -175,7 +176,7 @@ def test_monte_carlo_draws_follow_the_law(slice_inputs, jax_result):
         d["bt"], d["bf"], None, T_HIST, np.ones(12), d["eps"][:2],
         np.zeros(12), NPI_MAXES_DEFAULT, T_HIST,
         PipelineConfig(backend="pallas", **COMMON), dtype=torch.float64,
-        generator=torch.Generator().manual_seed(0),
+        generator=torch.Generator().manual_seed(0), device="cpu",
         trained=trained_params_from_numpy(jax_result.trained))
     u = res.monte_carlo["u_random"].numpy()
     assert u.shape == (16, HORIZON, 12)
@@ -195,7 +196,29 @@ def test_unported_options_raise(slice_inputs, change):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         run_pipeline(d["bt"], d["bf"], None, T_HIST, np.ones(12),
                      d["eps"], np.zeros(12), NPI_MAXES_DEFAULT, T_HIST, cfg,
-                     dtype=torch.float64)
+                     dtype=torch.float64, device="cpu")
+
+
+def test_pipeline_defaults_to_the_card(slice_inputs, monkeypatch):
+    """Without device= and with NumPy batches run_pipeline runs on the CUDA
+    card, so with no card it raises before any work instead of running on
+    the CPU; the stage functions share the default."""
+    from epidemicmodeling_torch.ops.cuda import ekf3_kernel
+    from epidemicmodeling_torch.pipelines import train_regions
+
+    def ran(*args, **kwargs):
+        raise AssertionError("the pipeline ran on the CPU")
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(ekf3_kernel, "ekf3_plain", ran)
+    d = slice_inputs
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_pipeline(d["bt"], d["bf"], None, T_HIST, np.ones(12), d["eps"],
+                     np.zeros(12), NPI_MAXES_DEFAULT, T_HIST,
+                     PipelineConfig(backend="pallas", **COMMON))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_regions(d["bt"], np.zeros(12), NPI_MAXES_DEFAULT, T_HIST,
+                      PipelineConfig(backend="pallas", **COMMON))
 
 
 def test_port_reproduces_realistic_golden(tmp_path):
@@ -229,7 +252,7 @@ def test_port_reproduces_realistic_golden(tmp_path):
                        np.asarray(jax_epsilon_grid(6)), np.zeros(12),
                        NPI_MAXES_DEFAULT, num_days_between(start, end), cfg,
                        generator=torch.Generator().manual_seed(0),
-                       dtype=torch.float64)
+                       dtype=torch.float64, device="cpu")
     golden = np.load(os.path.join(os.path.dirname(__file__), "goldens",
                                   "realistic_pipeline.npz"))
     got = {"a2": res.trained.a2, "b2": res.trained.b2,
