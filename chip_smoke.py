@@ -17,7 +17,7 @@ CUDA toolkit (nvcc). In order, it:
    whose float32 costates overflow on this data (a check that the kernel
    runs, with its errors printed), and two per-capita inputs whose states
    and costates stay finite, one without and one with active control, both
-   held at the bounds;
+   held at the bounds (the pipeline's chunk and the active case timed);
 4. checks run_pipeline on a small input against the same call with the
    kernels swapped for their plain versions (same trained parameters, same
    Monte-Carlo schedules);
@@ -41,11 +41,14 @@ CUDA toolkit (nvcc). In order, it:
    terms at the law's discontinuities, the optimal distance and the
    cutoff, where float32 rounding of a distance decides), and four mutants
    of the plain law (no cutoff, no attraction, no obstacles, obstacle
-   weight off by 20%) must read above the same bound.
+   weight off by 20%) must read above the same bound. Every case is
+   launched twice, and the two results must agree bit for bit.
 
 Every failed check raises, so the exit code is non-zero. Only when all
 phases pass does it print the kernel JSON line, the card's name and power
-limit, and, last, {"ok": true, "device": {...}}.
+limit, and, last, {"ok": true, "device": {...}}. The kernel line also
+gives ekf6's time on the per-capita input with active control and
+pairwise's at N = 100,000, both measured in the same run.
 """
 
 from __future__ import annotations
@@ -124,10 +127,32 @@ LAUNCH_COUNTERS = {"ekf3": ekf3_kernel, "ekf6": ekf6_kernel,
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
 # float32 operations per lane and time step of the EKS kernels (forward +
-# backward), counted from csrc/ekf3.cu and csrc/ekf6.cu as written: the dense
-# M x M products (2M^3 - M^2 each), the Joseph update, the Cholesky gain and
-# the bang-bang law, every division and square root counted as one
-EKF_OPS_PER_LANE_STEP = {"ekf3": 610, "ekf6": 4300}
+# backward). ekf3: counted from csrc/ekf3.cu as written. ekf6: the work its
+# outputs need, whatever implements it, every division and square root one
+# operation, a compare-and-select one. A product with the Jacobian A skips
+# A's structural zeros: row i of A has JAC_NNZ[i] nonzeros (21 of 36), so
+# each column of A X, and each row of X A^T, takes sum_i (2 nnz_i - 1) = 36
+# operations, 216 a product. C has one row with 3 nonzeros, so KC is rank
+# one: (I - KC) P = P - K (P C^T)^T reuses P C^T (72), and
+# X (I - KC)^T = X - (X C^T) K^T takes 30 + 72. The smoothed covariance,
+# which no output reads, is not counted.
+JAC_NNZ = (3, 3, 2, 4, 4, 5)
+A_PRODUCT_OPS = 6 * sum(2 * n - 1 for n in JAC_NNZ)
+EKF6_OPS = {
+    # forward
+    "observation, innovation": 7, "P C^T, S, K": 43,
+    "(I - KC) P": 72, "((I - KC) P) (I - KC)^T": 30 + 72,
+    "+ K K^T R, / gamma": 144,
+    "two symmetrizations": 60, "filtered state, margins": 18,
+    "12 inputs: bang-bang fill, drive, band terms": 12 * 18 + 4,
+    "Euler step, margins": 40, "Jacobian entries": 40,
+    "A Pp A^T + Q": 2 * A_PRODUCT_OPS + 6,
+    # backward
+    "Jacobian: band terms, entries": 12 * 11 + 40, "Pp A^T": A_PRODUCT_OPS,
+    "Cholesky of P-": 91, "six gain rows": 6 * 72,
+    "smoothed state, margins": 114, "bang-bang law on it": 12 * 6,
+}
+EKF_OPS_PER_LANE_STEP = {"ekf3": 610, "ekf6": sum(EKF6_OPS.values())}
 # float32 operations per pair of the force law (csrc/pairwise.cu): two
 # differences, two squares and a sum, opt_dist - d, w * sign, d2 * d, two
 # products and two sums, plus the square root and the division
@@ -319,7 +344,7 @@ def kernel_cases(bt, bf, actual, cfg, device):
     yield "ekf6", "per-capita", packed_args(
         6, per_capita_case(False), device), EKF6_FINITE, False
     yield "ekf6", "per-capita, control active", packed_args(
-        6, per_capita_case(True), device), EKF6_ACTIVE, False
+        6, per_capita_case(True), device), EKF6_ACTIVE, True
 
 
 def compare_kernel(name, tag, args, device, bounds, timed):
@@ -369,7 +394,7 @@ def compare_kernel(name, tag, args, device, bounds, timed):
     log(line + ("" if bounds else " (runs; not bounded)"))
     for n, bound in (bounds or {}).items():
         check(errs[n] <= bound, f"{name} {tag}: {n} {errs[n]:.3e} > {bound}")
-    return dict(abs_err=abs_err, ms=ms, plain_ms=plain_ms, T=T, B=B)
+    return dict(tag=tag, abs_err=abs_err, ms=ms, plain_ms=plain_ms, T=T, B=B)
 
 
 @contextlib.contextmanager
@@ -776,10 +801,14 @@ def pairwise_phase(device, sim_p):
     out = []
     for tag, pos in cases:
         got = pairwise_kernel.social_forces(pos, obs, cfg)
+        again = pairwise_kernel.social_forces(pos, obs, cfg)
         ref = pairwise_kernel.social_forces_plain(pos, obs, cfg)
         torch.cuda.synchronize()
         check(got.device == device and bool(torch.isfinite(got).all()),
               f"pairwise {tag}: output not finite on {device}")
+        check(torch.equal(got, again),
+              f"pairwise {tag}: two launches differ (the sums' order is "
+              "fixed, so they must not)")
         m = hold_pairwise(tag, got, ref, pos, obs, cfg,
                           torch.arange(SIM_N, device=device))
         del ref
@@ -801,6 +830,8 @@ def pairwise_phase(device, sim_p):
     ms = cuda_ms(lambda: pairwise_kernel.social_forces(pos, obs, cfg_big))
     got = pairwise_kernel.social_forces(pos, obs, cfg_big)
     check(bool(torch.isfinite(got).all()), "pairwise N=100k: non-finite")
+    check(torch.equal(got, pairwise_kernel.social_forces(pos, obs, cfg_big)),
+          "pairwise N=100k: two launches differ")
     rows = torch.randperm(BIG_N, generator=gen, device=device)[:BIG_ROWS]
     ref = law_rows(pos, obs, cfg_big, rows)[0]
     out.append(hold_pairwise("uniform, sampled", got[rows], ref, pos, obs,
@@ -808,7 +839,8 @@ def pairwise_phase(device, sim_p):
     big_bound, big_by = bound(4 * (4 * BIG_N + 2 * O),
                               PAIR_OPS * BIG_N * (BIG_N + O))
     log(f"kernel pairwise [uniform, N={BIG_N}, O={O}]: kernel_ms={ms:.3f} "
-        f"bound_ms={big_bound:.4f} ({big_by})")
+        f"bound_ms={big_bound:.4f} ({big_by}); two launches bitwise equal")
+    out[-1].update(big_ms=ms, big_bound_ms=big_bound)
     for m in out:
         check(m["row_err"] <= PAIRWISE_ROW_BOUND,
               f"pairwise {m['tag']} N={m['N']}: row_err {m['row_err']:.3e} "
@@ -837,7 +869,12 @@ def kernel_entries(measured, xprize_launches, stencil_cases, sim_launches,
             ms=big["ms"], plain_ms=big["plain_ms"], bound_ms=b_ms,
             bound_by=b_by, library_ms=None, launches=xprize_launches[name],
             path="run_pipeline (XPRIZE size, warm)",
-            shape=f"T={big['T']} B={big['B']}"))
+            shape=f"T={big['T']} B={big['B']} ({big['tag']})"))
+        if name == "ekf6":
+            active = next(m for m in measured[name]
+                          if m["tag"] == "per-capita, control active")
+            kernels[-1].update(active_ms=active["ms"],
+                               active_plain_ms=active["plain_ms"])
     big = [m for m in stencil_cases
            if m["ms"] is not None and m["eight"]][-1]
     kernels.append(dict(
@@ -858,6 +895,8 @@ def kernel_entries(measured, xprize_launches, stencil_cases, sim_launches,
         bound_ms=timed["bound_ms"], bound_by=timed["bound_by"],
         library_ms=None, launches=sim_launches["pairwise"],
         path=SIM_PATH,
+        n100k_ms=pairwise_cases[-1]["big_ms"],
+        n100k_bound_ms=pairwise_cases[-1]["big_bound_ms"],
         shape=f"N={timed['N']} O={timed['O']} float32"))
     kernels = [dict(name=name, route="cuda",
                     **{f: v for f, v in KERNELS[name].items()

@@ -11,18 +11,52 @@
 // [alpha_min, alpha_max] with the costates free. The backward pass is the
 // RTS smoother with an unrolled 6x6 Cholesky; it re-applies the bang-bang
 // law to the smoothed states to give U_OPT_SMOOTH, whose last row is 0 (a
-// reference convention: the MATLAB loop never writes it).
+// reference convention: the MATLAB loop never writes it). The smoothed
+// covariance, which no output reads, is not computed.
 //
 // What bounds it on the card: a sequential chain of T dependent steps per
-// lane (~1.5k flops forward, ~3k backward, with IEEE divisions and square
-// roots), so per-thread latency sets the time. ptxas (-Xptxas -v, sm_90a)
-// gives the forward 254 registers and the backward 167, with no spills; at
-// 254 registers two 128-thread blocks fit on an SM. The Pareto sweep gives
-// 25 epsilons x 235 regions = 5,875 lanes per chunk, 46 blocks of 128
-// threads on 132 SMs. The design: one thread per lane, the time loop inside
-// the thread, (s, P) in registers, coalesced lanes-last loads and stores, no
-// lane padding (the ragged edge is masked), no synchronisation. Spreading
-// lanes over all SMs is later work.
+// lane (~2.2k operations forward, ~1.3k backward, with IEEE divisions and
+// square roots), so latency sets the time unless the chain is spread over
+// threads. The design: a team of six threads per lane, one per row of the
+// 6x6 matrices. A block holds LANES = 32 lanes in six warps, and warp r is
+// row r of all 32 lanes, so every row store of S_*, P_* and U_SM is one
+// coalesced 128-byte line across lanes in the lanes-last layout. The team
+// exchanges rows through shared memory: each thread writes its row of an
+// unsymmetrised product, the block synchronises, and every thread reads
+// the whole matrix and symmetrises it itself. Each matrix element is a dot
+// product in the same order as ekf_common.cuh's matmul, matmul_t and
+// symmetrize, so the design changes where an element is computed, not how.
+// - Forward, per step: every thread forms C, the gain K and the filtered
+//   state redundantly (cheap, and needed whole); thread r forms row r of
+//   (I-KC) P, of the Joseph update, of A Pp and of A Pp A^T + Q, and the
+//   terms of inputs r and r + 6 in the two sums over the 12 inputs (the
+//   drive of alpha and the band term A[2][5]), which every thread then adds
+//   in input order. Two block barriers a step. The step's inputs (u, x, R)
+//   are prefetched one step ahead into shared memory with cp.async,
+//   double-buffered. With adaptive R, warp 0 alone keeps the innovation
+//   window and publishes R.
+// - Backward, per step: P-_{t+1} is factored once per lane, in a pipeline
+//   through shared memory: thread r forms row r of the Cholesky factor of
+//   step t + 6 - r, from the rows above it formed in earlier iterations, so
+//   each thread takes one row of one factor a step and all six rows of
+//   step t are in place when step t comes (the factors do not depend on
+//   the smoothed states). The team shares the band terms of A[2][5] as in
+//   the forward; thread r then solves row r of the gain J and forms row r
+//   of the smoothed state, which the team exchanges through shared memory;
+//   U_OPT_SMOOTH's rows of step t+1 (two a thread) follow one barrier
+//   later. Two block barriers a step. The next iteration's S_PLUS, P_PLUS,
+//   S_MINUS, u and factor rows are prefetched into shared memory with
+//   cp.async, double-buffered, while this one computes.
+// - P_MINUS and P_PLUS hold only the lower triangles of the symmetric
+//   covariances (21 of 36 floats a step and lane).
+// - vecs (a, u_min, u_max, w) sit in shared memory, loaded once per lane;
+//   the scalar rows in registers.
+// The ragged last block reads lane B-1's data for its dead lanes and
+// stores nothing for them. 5,875 lanes (the Pareto sweep's chunk) give 184
+// blocks of 192 threads, about 8 warps per SM on 132 SMs.
+//
+// Registers (-Xptxas -v, sm_90a): printed by chip_smoke.py; PERF.md keeps
+// the measured figures.
 #include "ekf_common.cuh"
 
 namespace {
@@ -30,11 +64,26 @@ namespace {
 constexpr int M = 6;
 constexpr int NPI = 12;
 constexpr int MAXL = 64;
+constexpr int LANES = 32;
+constexpr int BLOCK = M * LANES;   // warp r owns row r of its 32 lanes
 // scal rows: dt, beta, gamma, b, epsilon, sigma, alpha_min, alpha_max, q(6)
 enum { R_DT, R_BETA, R_GAMMA, R_B, R_EPS, R_SIGMA, R_AMIN, R_AMAX, R_Q };
 constexpr int NSCAL = 14;
 // vecs planes: a, u_min, u_max, w
 enum { V_A, V_UMIN, V_UMAX, V_W };
+constexpr int NVEC = 4 * NPI;
+// forward inputs of one step: u (12), x, R
+constexpr int NIN = NPI + 2;
+// P_MINUS and P_PLUS keep the lower triangle of each symmetric 6x6
+// matrix, row by row: element (i, k), k <= i, at tri(i, k)
+constexpr int NTRI = M * (M + 1) / 2;
+__device__ __forceinline__ int tri(int i, int k) { return i * (i + 1) / 2 + k; }
+// backward inputs of one iteration: S_PLUS[t], P_PLUS[t], u[t],
+// S_MINUS[t+1], and each thread r's row of the P_MINUS it factors
+enum { B_SP = 0, B_PP = M, B_U = M + NTRI, B_SM = B_U + NPI,
+       B_FM = B_SM + M, NB = B_FM + NTRI };
+// Cholesky factors in flight in the backward, by step
+constexpr int RING = M + 1;
 
 struct Params6 {
   float dt, beta, gam, b, eps, sig, amin, amax;
@@ -54,27 +103,93 @@ __device__ __forceinline__ Params6 load_params(const float* scal, int b,
   return p;
 }
 
-__device__ __forceinline__ float vec(const float* vecs, int plane, int k,
-                                     int b, int B) {
-  return vecs[at3(plane, k, NPI, b, B)];
+// vecs of this lane in shared memory: vs points at the lane's column of a
+// (NVEC, LANES) array
+__device__ __forceinline__ float vec(const float* vs, int plane, int k) {
+  return vs[(plane * NPI + k) * LANES];
 }
 
-// Bang-bang fill of the NaN inputs + the SI-alpha/costate Euler step.
-__device__ __forceinline__ void state_update(const float (&u)[NPI],
-                                             const float (&s)[M],
-                                             const Params6& p,
-                                             const float* vecs, int b, int B,
-                                             float (&uf)[NPI], float (&sn)[M]) {
-  float drive = p.gam * p.b - p.gam * s[2];
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// v[r] for a row index r known only at run time, without indexing a
+// register array (which would put it in local memory)
+__device__ __forceinline__ float pick(const float (&v)[M], int r) {
+  float out = v[0];
 #pragma unroll
-  for (int k = 0; k < NPI; ++k) {
-    const float a = vec(vecs, V_A, k, b, B);
-    const float umax = vec(vecs, V_UMAX, k, b, B);
-    const float phi = p.eps * vec(vecs, V_W, k, b, B) - p.gam * s[5] * a;
-    const float cand = phi > 0.f ? vec(vecs, V_UMIN, k, b, B) : umax;
-    uf[k] = isnan(u[k]) ? cand : u[k];
-    drive += p.gam * a * (umax - uf[k]);
+  for (int i = 1; i < M; ++i) out = r == i ? v[i] : out;
+  return out;
+}
+
+__device__ __forceinline__ void pick_row(const float (&A)[M][M], int r,
+                                         float (&row)[M]) {
+#pragma unroll
+  for (int j = 0; j < M; ++j) {
+    row[j] = A[0][j];
+#pragma unroll
+    for (int i = 1; i < M; ++i) row[j] = r == i ? A[i][j] : row[j];
   }
+}
+
+// The whole matrix from its rows in shared memory (a (M*M, LANES) array,
+// lane column l).
+__device__ __forceinline__ void read_matrix(const float* buf, int l,
+                                            float (&A)[M][M]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+#pragma unroll
+    for (int j = 0; j < M; ++j) A[i][j] = buf[(i * M + j) * LANES + l];
+}
+
+__device__ __forceinline__ void write_row(float* buf, int r, int l,
+                                          const float (&row)[M]) {
+#pragma unroll
+  for (int j = 0; j < M; ++j) buf[(r * M + j) * LANES + l] = row[j];
+}
+
+// The bang-bang fill of input k: u_min where phi > 0, else u_max.
+__device__ __forceinline__ float fill(float u, float s5, const Params6& p,
+                                      const float* vs, int k) {
+  const float a = vec(vs, V_A, k);
+  const float phi = p.eps * vec(vs, V_W, k) - p.gam * s5 * a;
+  const float cand = phi > 0.f ? vec(vs, V_UMIN, k) : vec(vs, V_UMAX, k);
+  return isnan(u) ? cand : u;
+}
+
+// Input k's terms of the two sums over the 12 inputs: the drive of alpha
+// (gam * a times u_max - u filled) and the sigma-band term of A[2][5].
+__device__ __forceinline__ void npi_terms(float u, float s5, const Params6& p,
+                                          float inv_sigma, const float* vs,
+                                          int k, float& ga, float& gap,
+                                          float& band_term) {
+  const float a = vec(vs, V_A, k);
+  const float umax = vec(vs, V_UMAX, k);
+  const float phi = p.eps * vec(vs, V_W, k) - p.gam * s5 * a;
+  const bool band = isnan(u) && phi > -inv_sigma && phi < inv_sigma;
+  ga = p.gam * a;
+  gap = umax - fill(u, s5, p, vs, k);
+  band_term = band ? p.gam * p.dt * (p.sig * 0.5f) * a *
+                         (umax - vec(vs, V_UMIN, k))
+                   : 0.f;
+}
+
+// The SI-alpha/costate Euler step, given the drive of alpha (the bang-bang
+// fill of the NaN inputs is in it).
+__device__ __forceinline__ void state_update(const float (&s)[M],
+                                             float drive, const Params6& p,
+                                             float (&sn)[M]) {
   const float rho = s[3] - s[4] - (1.f - p.eps);
   sn[0] = clip_lo_hi(s[0] - p.dt * s[2] * s[0] * s[1], 0.f, 1.f);
   sn[1] = clip_lo_hi(s[1] + p.dt * (s[2] * s[0] * s[1] - p.beta * s[1]), 0.f,
@@ -91,22 +206,17 @@ __device__ __forceinline__ void margins(float (&s)[M], const Params6& p) {
   s[2] = clip_hi_lo(s[2], p.amin, p.amax);
 }
 
-__device__ __forceinline__ void jacobian(const float (&u)[NPI],
-                                         const float (&s)[M],
-                                         const Params6& p, const float* vecs,
-                                         int b, int B, float (&A)[M][M]) {
+// margins() applied to entry r of a state alone
+__device__ __forceinline__ float margin_of(float v, int r, const Params6& p) {
+  if (r < 2) return clip_hi_lo(v, 0.f, 1.f);
+  if (r == 2) return clip_hi_lo(v, p.amin, p.amax);
+  return v;
+}
+
+// The Jacobian at s, its band term a36 = -sum_k band_term_k given.
+__device__ __forceinline__ void jacobian(const float (&s)[M], float a36,
+                                         const Params6& p, float (&A)[M][M]) {
   const float rho = s[3] - s[4] - (1.f - p.eps);
-  const float inv_sigma = 1.f / p.sig;
-  float a36 = 0.f;
-#pragma unroll
-  for (int k = 0; k < NPI; ++k) {
-    const float a = vec(vecs, V_A, k, b, B);
-    const float phi = p.eps * vec(vecs, V_W, k, b, B) - p.gam * s[5] * a;
-    const bool band = isnan(u[k]) && phi > -inv_sigma && phi < inv_sigma;
-    a36 -= band ? p.gam * p.dt * (p.sig * 0.5f) * a *
-                      (vec(vecs, V_UMAX, k, b, B) - vec(vecs, V_UMIN, k, b, B))
-                : 0.f;
-  }
 #pragma unroll
   for (int i = 0; i < M; ++i)
 #pragma unroll
@@ -134,8 +244,41 @@ __device__ __forceinline__ void jacobian(const float (&u)[NPI],
   A[5][5] = 1.f + p.dt * p.gam;
 }
 
+// Row r of X @ Y (matmul's order) and of X @ Y^T (matmul_t's order), from
+// row r of X and the whole Y.
+__device__ __forceinline__ void row_matmul(const float (&xr)[M],
+                                           const float (&Y)[M][M],
+                                           float (&out)[M]) {
+#pragma unroll
+  for (int k = 0; k < M; ++k) {
+    float acc = xr[0] * Y[0][k];
+#pragma unroll
+    for (int j = 1; j < M; ++j) acc += xr[j] * Y[j][k];
+    out[k] = acc;
+  }
+}
+
+__device__ __forceinline__ void row_matmul_t(const float (&xr)[M],
+                                             const float (&Y)[M][M],
+                                             float (&out)[M]) {
+#pragma unroll
+  for (int k = 0; k < M; ++k) {
+    float acc = xr[0] * Y[k][0];
+#pragma unroll
+    for (int j = 1; j < M; ++j) acc += xr[j] * Y[k][j];
+    out[k] = acc;
+  }
+}
+
+// Copy the lane's vecs into shared memory (the caller synchronises).
+__device__ __forceinline__ void load_vecs(const float* vecs, float* vecs_s,
+                                          int r, int l, int bl, int B) {
+  for (int e = r; e < NVEC; e += M)
+    vecs_s[e * LANES + l] = vecs[at3(0, e, NVEC, bl, B)];
+}
+
 template <bool ADAPTIVE>
-__global__ void __launch_bounds__(EKF_THREADS)
+__global__ void __launch_bounds__(BLOCK, 2)
 ekf6_fwd_kernel(const float* __restrict__ u, const float* __restrict__ x,
                 const float* __restrict__ Rv, const float* __restrict__ scal,
                 const float* __restrict__ vecs,
@@ -145,29 +288,69 @@ ekf6_fwd_kernel(const float* __restrict__ u, const float* __restrict__ x,
                 float* __restrict__ P_MINUS, float* __restrict__ P_PLUS,
                 int T, int B, float gd, int total_cases, float beta,
                 float one_minus_beta, int L_mon) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;   // the ragged edge: no lane padding
-  const Params6 p = load_params(scal, b, B);
+  __shared__ float vecs_s[NVEC * LANES];
+  __shared__ float in_s[2][NIN * LANES];
+  __shared__ float Pbuf[M * M * LANES];    // rows of A Pp A^T + Q
+  __shared__ float Ppbuf[M * M * LANES];   // rows of the Joseph update
+  __shared__ float Rbuf[LANES];            // adaptive R of the next step
+  __shared__ float terms_s[3 * NPI * LANES];  // npi_terms of the step
+  const int r = threadIdx.x / LANES;       // warp-uniform
+  const int l = threadIdx.x % LANES;
+  const int b = blockIdx.x * LANES + l;
+  const bool live = b < B;
+  const int bl = live ? b : B - 1;
+  const Params6 p = load_params(scal, bl, B);
+  const float qr = scal[at3(0, R_Q + r, NSCAL, bl, B)];
+  const float inv_sigma = 1.f / p.sig;
+  const float* vs = vecs_s + l;
+  load_vecs(vecs, vecs_s, r, l, bl, B);
 
-  float s[M], P[M][M];
+  auto prefetch = [&](int t) {
+    float* dst = in_s[t & 1];
+    for (int e = r; e < NIN; e += M) {
+      const float* src = e < NPI ? u + at3(t, e, NPI, bl, B)
+                         : e == NPI ? x + at3(t, 0, 1, bl, B)
+                                    : Rv + at3(t, 0, 1, bl, B);
+      cp_async4(dst + e * LANES + l, src);
+    }
+    cp_async_commit();
+  };
+
+  float s[M];
 #pragma unroll
-  for (int i = 0; i < M; ++i) {
-    s[i] = s_init[at3(0, i, M, b, B)];
+  for (int i = 0; i < M; ++i) s[i] = s_init[at3(0, i, M, bl, B)];
 #pragma unroll
-    for (int j = 0; j < M; ++j) P[i][j] = Ps_init[at3(0, i * M + j, M * M, b, B)];
-  }
+  for (int j = 0; j < M; ++j)
+    Pbuf[(r * M + j) * LANES + l] = Ps_init[at3(0, r * M + j, M * M, bl, B)];
   AdaptiveR<ADAPTIVE ? MAXL : 1> ad;
-  if constexpr (ADAPTIVE) ad.init(Rv[b], L_mon);
+  if constexpr (ADAPTIVE) {
+    if (r == 0) {
+      ad.init(Rv[bl], L_mon);
+      Rbuf[l] = ad.R;
+    }
+  }
+  prefetch(0);
 
   for (int t = 0; t < T; ++t) {
+    // step t's inputs, the rows of P and the adaptive R are in place
+    cp_async_wait_all();
+    __syncthreads();
+    float P[M][M];
+    read_matrix(Pbuf, l, P);
+    if (t > 0) symmetrize<M>(P);
+    const float* in = in_s[t & 1];
+    const float xt = in[NPI * LANES + l];
+    const float Rt = ADAPTIVE ? Rbuf[l] : in[(NPI + 1) * LANES + l];
+    if (t + 1 < T) prefetch(t + 1);
+
+    float Pr[M];
+    pick_row(P, r, Pr);
+    if (live) {
+      S_MINUS[at3(t, r, M, b, B)] = pick(s, r);
 #pragma unroll
-    for (int i = 0; i < M; ++i) {
-      S_MINUS[at3(t, i, M, b, B)] = s[i];
-#pragma unroll
-      for (int j = 0; j < M; ++j) P_MINUS[at3(t, i * M + j, M * M, b, B)] = P[i][j];
+      for (int j = 0; j < M; ++j)
+        if (j <= r) P_MINUS[at3(t, tri(r, j), NTRI, b, B)] = Pr[j];
     }
-    const float xt = x[at3(t, 0, 1, b, B)];
-    const float Rt = ADAPTIVE ? ad.R : Rv[at3(t, 0, 1, b, B)];
 
     // only the first three entries of C can be nonzero
     float C[3], xp;
@@ -191,60 +374,89 @@ ekf6_fwd_kernel(const float* __restrict__ u, const float* __restrict__ x,
 #pragma unroll
     for (int i = 0; i < M; ++i) K[i] = valid ? PCt[i] / S : 0.f;
 
-    float Pp[M][M];
+    // row r of the Joseph update (I - KC) P (I - KC)^T
     {
-      float IKC[M][M], T1[M][M];
+      float IKC[M][M], IKCr[M], T1r[M], Ppr[M];
 #pragma unroll
       for (int i = 0; i < M; ++i)
 #pragma unroll
         for (int j = 0; j < M; ++j)
           IKC[i][j] = (i == j ? 1.f : 0.f) - (j < 3 ? K[i] * C[j] : 0.f);
-      matmul<M>(IKC, P, T1);
-      matmul_t<M>(T1, IKC, Pp);
-    }
-#pragma unroll
-    for (int i = 0; i < M; ++i)
+      const float Kr = pick(K, r);
 #pragma unroll
       for (int j = 0; j < M; ++j)
-        Pp[i][j] = valid ? (Pp[i][j] + K[i] * K[j] * Rt) / gd : P[i][j];
-    symmetrize<M>(Pp);
+        IKCr[j] = (r == j ? 1.f : 0.f) - (j < 3 ? Kr * C[j] : 0.f);
+      row_matmul(IKCr, P, T1r);
+      row_matmul_t(T1r, IKC, Ppr);
+#pragma unroll
+      for (int j = 0; j < M; ++j)
+        Ppr[j] = valid ? (Ppr[j] + Kr * K[j] * Rt) / gd : Pr[j];
+      write_row(Ppbuf, r, l, Ppr);
+    }
     float sp[M];
 #pragma unroll
     for (int i = 0; i < M; ++i) sp[i] = valid ? s[i] + K[i] * innov : s[i];
     margins(sp, p);
-
+    // this thread's share of the sums over the inputs: k = r and r + 6
 #pragma unroll
-    for (int i = 0; i < M; ++i) {
-      S_PLUS[at3(t, i, M, b, B)] = sp[i];
+    for (int h = 0; h < 2; ++h) {
+      const int k = r + h * M;
+      float ga, gap, band_term;
+      npi_terms(in[k * LANES + l], sp[5], p, inv_sigma, vs, k, ga, gap,
+                band_term);
+      terms_s[k * LANES + l] = ga;
+      terms_s[(NPI + k) * LANES + l] = gap;
+      terms_s[(2 * NPI + k) * LANES + l] = band_term;
+    }
+    __syncthreads();
+    float Pp[M][M];
+    read_matrix(Ppbuf, l, Pp);
+    symmetrize<M>(Pp);
+    {
+      float Ppr[M];
+      pick_row(Pp, r, Ppr);
+      if (live) {
+        S_PLUS[at3(t, r, M, b, B)] = pick(sp, r);
 #pragma unroll
-      for (int j = 0; j < M; ++j) P_PLUS[at3(t, i * M + j, M * M, b, B)] = Pp[i][j];
+        for (int j = 0; j < M; ++j)
+          if (j <= r) P_PLUS[at3(t, tri(r, j), NTRI, b, B)] = Ppr[j];
+      }
     }
 
-    // prediction
-    float ut[NPI], uf[NPI];
+    // prediction: row r of A Pp A^T + Q; the sums over the inputs in k order
+    float drive = p.gam * p.b - p.gam * sp[2], a36 = 0.f;
 #pragma unroll
-    for (int k = 0; k < NPI; ++k) ut[k] = u[at3(t, k, NPI, b, B)];
+    for (int k = 0; k < NPI; ++k) {
+      drive += terms_s[k * LANES + l] * terms_s[(NPI + k) * LANES + l];
+      a36 -= terms_s[(2 * NPI + k) * LANES + l];
+    }
     float sn[M];
-    state_update(ut, sp, p, vecs, b, B, uf, sn);
+    state_update(sp, drive, p, sn);
     margins(sn, p);
     {
-      float A[M][M], AP[M][M];
-      jacobian(ut, sp, p, vecs, b, B, A);
-      matmul<M>(A, Pp, AP);
-      matmul_t<M>(AP, A, P);
-    }
+      float A[M][M], Ar[M], APr[M], Pnr[M];
+      jacobian(sp, a36, p, A);
+      pick_row(A, r, Ar);
+      row_matmul(Ar, Pp, APr);
+      row_matmul_t(APr, A, Pnr);
 #pragma unroll
-    for (int i = 0; i < M; ++i) P[i][i] += scal[at3(0, R_Q + i, NSCAL, b, B)];
-    symmetrize<M>(P);
+      for (int j = 0; j < M; ++j)
+        if (j == r) Pnr[j] += qr;
+      write_row(Pbuf, r, l, Pnr);
+    }
 #pragma unroll
     for (int i = 0; i < M; ++i) s[i] = sn[i];
 
-    if constexpr (ADAPTIVE)
-      ad.update(t, innov, valid, L_mon, beta, one_minus_beta);
+    if constexpr (ADAPTIVE) {
+      if (r == 0) {
+        ad.update(t, innov, valid, L_mon, beta, one_minus_beta);
+        Rbuf[l] = ad.R;
+      }
+    }
   }
 }
 
-__global__ void __launch_bounds__(EKF_THREADS)
+__global__ void __launch_bounds__(BLOCK, 2)
 ekf6_bwd_kernel(const float* __restrict__ u,
                 const float* __restrict__ S_PLUS,
                 const float* __restrict__ S_MINUS,
@@ -253,83 +465,168 @@ ekf6_bwd_kernel(const float* __restrict__ u,
                 const float* __restrict__ scal,
                 const float* __restrict__ vecs,
                 const float* __restrict__ s_final,
-                const float* __restrict__ Ps_final,
                 float* __restrict__ S_SMOOTH, float* __restrict__ U_SM, int T,
                 int B) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const Params6 p = load_params(scal, b, B);
+  __shared__ float vecs_s[NVEC * LANES];
+  __shared__ float in_s[2][NB * LANES];
+  __shared__ float L_s[RING][NTRI * LANES];  // factor of P-_{s+1}, slot s % RING
+  __shared__ float ss_s[2][M * LANES];     // smoothed state, by step parity
+  __shared__ float band_s[NPI * LANES];    // band terms of A[2][5]
+  const int r = threadIdx.x / LANES;       // warp-uniform
+  const int l = threadIdx.x % LANES;
+  const int b = blockIdx.x * LANES + l;
+  const bool live = b < B;
+  const int bl = live ? b : B - 1;
+  const Params6 p = load_params(scal, bl, B);
+  const float inv_sigma = 1.f / p.sig;
+  const float* vs = vecs_s + l;
+  load_vecs(vecs, vecs_s, r, l, bl, B);
 
-  // terminal row: NaN entries of (s_final, Ps_final) take the last filtered
-  // value element by element; U_OPT_SMOOTH's last row is 0
-  float ssn[M], Psn[M][M];
-#pragma unroll
-  for (int i = 0; i < M; ++i) {
-    const float sf = s_final[at3(0, i, M, b, B)];
-    ssn[i] = isnan(sf) ? S_PLUS[at3(T - 1, i, M, b, B)] : sf;
-    S_SMOOTH[at3(T - 1, i, M, b, B)] = ssn[i];
-#pragma unroll
-    for (int j = 0; j < M; ++j) {
-      const float pf = Ps_final[at3(0, i * M + j, M * M, b, B)];
-      Psn[i][j] = isnan(pf) ? P_PLUS[at3(T - 1, i * M + j, M * M, b, B)] : pf;
+  // Iteration it smooths step it (it <= T - 2) and, in thread r, factors
+  // row r of P-_{s+1} for step s = it - (M - r): row r of a step's factor
+  // is formed M - r iterations before the step, after the rows above it,
+  // and all six are in place when the step comes.
+  auto factor_step = [&](int it) { return it - (M - r); };
+  // what iteration it reads, prefetched during iteration it + 1
+  auto prefetch = [&](int it) {
+    float* dst = in_s[it & 1];
+    if (it <= T - 2)
+      for (int e = r; e < B_FM; e += M) {
+        const float* src =
+            e < B_PP   ? S_PLUS + at3(it, e - B_SP, M, bl, B)
+            : e < B_U  ? P_PLUS + at3(it, e - B_PP, NTRI, bl, B)
+            : e < B_SM ? u + at3(it, e - B_U, NPI, bl, B)
+                       : S_MINUS + at3(it + 1, e - B_SM, M, bl, B);
+        cp_async4(dst + e * LANES + l, src);
+      }
+    const int s = factor_step(it);
+    if (s >= 0 && s <= T - 2)
+      for (int k = 0; k <= r; ++k)
+        cp_async4(dst + (B_FM + tri(r, k)) * LANES + l,
+                  P_MINUS + at3(s + 1, tri(r, k), NTRI, bl, B));
+    cp_async_commit();
+  };
+  // U_OPT_SMOOTH rows r and r + 6 of step t from the smoothed state's
+  // costate s5 and the step's raw inputs
+  auto store_u = [&](int t, float s5, float u0, float u1) {
+    if (live) {
+      U_SM[at3(t, r, NPI, b, B)] = fill(u0, s5, p, vs, r);
+      U_SM[at3(t, r + M, NPI, b, B)] = fill(u1, s5, p, vs, r + M);
+    }
+  };
+
+  // terminal row: NaN entries of s_final take the last filtered value;
+  // U_OPT_SMOOTH's last row is 0
+  {
+    const float sf = s_final[at3(0, r, M, bl, B)];
+    const float ssr = isnan(sf) ? S_PLUS[at3(T - 1, r, M, bl, B)] : sf;
+    ss_s[(T - 1) & 1][r * LANES + l] = ssr;
+    if (live) {
+      S_SMOOTH[at3(T - 1, r, M, b, B)] = ssr;
+      U_SM[at3(T - 1, r, NPI, b, B)] = 0.f;
+      U_SM[at3(T - 1, r + M, NPI, b, B)] = 0.f;
     }
   }
-#pragma unroll
-  for (int k = 0; k < NPI; ++k) U_SM[at3(T - 1, k, NPI, b, B)] = 0.f;
+  if (T < 2) return;
+  prefetch(T - 2 + M);
 
-  for (int t = T - 2; t >= 0; --t) {
-    float sp[M], Pp[M][M], Pm[M][M], ut[NPI];
+  float u0 = 0.f, u1 = 0.f;   // step t+1's inputs r and r + 6
+  for (int it = T - 2 + M; it >= 0; --it) {
+    // this iteration's rows, the factor rows formed before it and step
+    // it+1's smoothed state are in place
+    cp_async_wait_all();
+    __syncthreads();
+    const bool smooth = it <= T - 2;       // block-uniform
+    float ssn[M];
+    if (smooth) {
 #pragma unroll
-    for (int i = 0; i < M; ++i) {
-      sp[i] = S_PLUS[at3(t, i, M, b, B)];
+      for (int i = 0; i < M; ++i) ssn[i] = ss_s[(it + 1) & 1][i * LANES + l];
+      if (it + 1 < T - 1) store_u(it + 1, ssn[5], u0, u1);
+    }
+    if (it >= 1) prefetch(it - 1);
+    const float* in = in_s[it & 1];
+
+    // row r of the factor of step s: cholesky_floored's row r, reading
+    // the rows above it from shared memory
+    {
+      const int s = factor_step(it);
+      if (s >= 0 && s <= T - 2) {
+        float* Ls = L_s[s % RING];
+        float Lr[M];
 #pragma unroll
-      for (int j = 0; j < M; ++j) {
-        Pp[i][j] = P_PLUS[at3(t, i * M + j, M * M, b, B)];
-        Pm[i][j] = P_MINUS[at3(t + 1, i * M + j, M * M, b, B)];
+        for (int j = 0; j < M; ++j) {
+          if (j > r) break;
+          float acc = in[(B_FM + tri(r, j)) * LANES + l];
+#pragma unroll
+          for (int k = 0; k < j; ++k)
+            acc -= Lr[k] * (j == r ? Lr[k] : Ls[tri(j, k) * LANES + l]);
+          Lr[j] = j == r ? sqrtf(acc > FLT_MIN ? acc : FLT_MIN)
+                         : acc / Ls[tri(j, j) * LANES + l];
+        }
+#pragma unroll
+        for (int k = 0; k < M; ++k)
+          if (k <= r) Ls[tri(r, k) * LANES + l] = Lr[k];
       }
     }
-#pragma unroll
-    for (int k = 0; k < NPI; ++k) ut[k] = u[at3(t, k, NPI, b, B)];
+    if (!smooth) continue;
 
-    float J[M][M];
+    const int t = it;
+    float sp[M], Ppr[M];
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+      sp[i] = in[(B_SP + i) * LANES + l];
+      Ppr[i] = in[(B_PP + (i <= r ? tri(r, i) : tri(i, r))) * LANES + l];
+    }
+    u0 = in[(B_U + r) * LANES + l];
+    u1 = in[(B_U + r + M) * LANES + l];
+    // this thread's band terms (k = r and r + 6), shared with the team
     {
-      float A[M][M], PAt[M][M];
-      jacobian(ut, sp, p, vecs, b, B, A);
-      matmul_t<M>(Pp, A, PAt);
-      smoother_gain<M>(Pm, PAt, J);
+      float ga, gap, band_term;
+      npi_terms(u0, sp[5], p, inv_sigma, vs, r, ga, gap, band_term);
+      band_s[r * LANES + l] = band_term;
+      npi_terms(u1, sp[5], p, inv_sigma, vs, r + M, ga, gap, band_term);
+      band_s[(r + M) * LANES + l] = band_term;
     }
-    float ss[M];
-#pragma unroll
-    for (int i = 0; i < M; ++i) {
-      float dj = 0.f;
-#pragma unroll
-      for (int j = 0; j < M; ++j)
-        dj += J[i][j] * (ssn[j] - S_MINUS[at3(t + 1, j, M, b, B)]);
-      ss[i] = sp[i] + dj;
-    }
-    margins(ss, p);
-    smoothed_cov<M>(Pp, Pm, J, Psn);
+    __syncthreads();
 
-    float uf[NPI], unused[M];
-    state_update(ut, ss, p, vecs, b, B, uf, unused);
+    // row r of the gain J = Pp A^T inv(Pm)
+    float Jr[M];
+    {
+      float a36 = 0.f;
 #pragma unroll
-    for (int i = 0; i < M; ++i) {
-      S_SMOOTH[at3(t, i, M, b, B)] = ss[i];
-      ssn[i] = ss[i];
+      for (int k = 0; k < NPI; ++k) a36 -= band_s[k * LANES + l];
+      float A[M][M], PAtr[M], L[M][M];
+      jacobian(sp, a36, p, A);
+      row_matmul_t(Ppr, A, PAtr);
+      const float* Lt = L_s[t % RING];
+#pragma unroll
+      for (int i = 0; i < M; ++i)
+#pragma unroll
+        for (int k = 0; k <= i; ++k) L[i][k] = Lt[tri(i, k) * LANES + l];
+      gain_row<M>(L, PAtr, Jr);
     }
+    float dj = 0.f;
 #pragma unroll
-    for (int k = 0; k < NPI; ++k) U_SM[at3(t, k, NPI, b, B)] = uf[k];
+    for (int j = 0; j < M; ++j)
+      dj += Jr[j] * (ssn[j] - in[(B_SM + j) * LANES + l]);
+    const float ssr = margin_of(pick(sp, r) + dj, r, p);
+    ss_s[t & 1][r * LANES + l] = ssr;
+    if (live) S_SMOOTH[at3(t, r, M, b, B)] = ssr;
   }
+  __syncthreads();
+  store_u(0, ss_s[0][(M - 1) * LANES + l], u0, u1);
 }
 
-inline int n_blocks(int B) { return (B + EKF_THREADS - 1) / EKF_THREADS; }
+inline int n_blocks(int B) { return (B + LANES - 1) / LANES; }
 
 }  // namespace
 
 extern "C" {
 
 // u (T,12,B), x/Rv (T,B), scal (14,B), vecs (4,12,B), s_init (6,B),
-// Ps_init (36,B) -> S_MINUS, S_PLUS (T,6,B), P_MINUS, P_PLUS (T,36,B).
+// Ps_init (36,B) -> S_MINUS, S_PLUS (T,6,B), P_MINUS, P_PLUS (T,21,B), the
+// lower triangles of the covariances row by row (P_MINUS[0], the lower
+// triangle of Ps_init, is never read).
 // beta != 1 adapts the fixed prior Rv[0] over an L_mon-step window
 // (L_mon <= 64). Returns cudaGetLastError() after the launch.
 int ekf6_forward(const float* u, const float* x, const float* Rv,
@@ -342,12 +639,12 @@ int ekf6_forward(const float* u, const float* x, const float* Rv,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (beta != 1.f) {
     if (L_mon < 1 || L_mon > MAXL) return (int)cudaErrorInvalidValue;
-    ekf6_fwd_kernel<true><<<n_blocks(B), EKF_THREADS, 0, st>>>(
+    ekf6_fwd_kernel<true><<<n_blocks(B), BLOCK, 0, st>>>(
         u, x, Rv, scal, vecs, s_init, Ps_init, S_MINUS, S_PLUS, P_MINUS,
         P_PLUS, T, B, gamma_discount, total_cases, beta, one_minus_beta,
         L_mon);
   } else {
-    ekf6_fwd_kernel<false><<<n_blocks(B), EKF_THREADS, 0, st>>>(
+    ekf6_fwd_kernel<false><<<n_blocks(B), BLOCK, 0, st>>>(
         u, x, Rv, scal, vecs, s_init, Ps_init, S_MINUS, S_PLUS, P_MINUS,
         P_PLUS, T, B, gamma_discount, total_cases, beta, one_minus_beta,
         L_mon);
@@ -356,17 +653,19 @@ int ekf6_forward(const float* u, const float* x, const float* Rv,
 }
 
 // u + forward outputs + scal, vecs, s_final (6,B), Ps_final (36,B)
-//   -> S_SMOOTH (T,6,B), U_SM (T,12,B).
+//   -> S_SMOOTH (T,6,B), U_SM (T,12,B). Ps_final enters no output: the
+// smoothed covariance it starts is not computed.
 int ekf6_backward(const float* u, const float* S_PLUS, const float* S_MINUS,
                   const float* P_PLUS, const float* P_MINUS, const float* scal,
                   const float* vecs, const float* s_final,
                   const float* Ps_final, float* S_SMOOTH, float* U_SM, int T,
                   int B, void* stream) {
+  (void)Ps_final;
   if (T < 1 || B < 1) return (int)cudaErrorInvalidValue;
-  ekf6_bwd_kernel<<<n_blocks(B), EKF_THREADS, 0,
+  ekf6_bwd_kernel<<<n_blocks(B), BLOCK, 0,
                     static_cast<cudaStream_t>(stream)>>>(
-      u, S_PLUS, S_MINUS, P_PLUS, P_MINUS, scal, vecs, s_final, Ps_final,
-      S_SMOOTH, U_SM, T, B);
+      u, S_PLUS, S_MINUS, P_PLUS, P_MINUS, scal, vecs, s_final, S_SMOOTH,
+      U_SM, T, B);
   return (int)cudaGetLastError();
 }
 

@@ -77,14 +77,11 @@ __device__ __forceinline__ void symmetrize(float (&P)[M][M]) {
     }
 }
 
-// Smoother gain J = PAt * inv(Pm) for SPD Pm: unrolled Cholesky of Pm with
-// every pivot floored at FLT_MIN (the f32 `tiny` of the reference), then
-// forward/backward substitution per row c of PAt; J row c = the solution.
+// Unrolled Cholesky factor L (lower) of the SPD matrix Pm, every pivot
+// floored at FLT_MIN (the f32 `tiny` of the reference).
 template <int M>
-__device__ __forceinline__ void smoother_gain(const float (&Pm)[M][M],
-                                              const float (&PAt)[M][M],
-                                              float (&J)[M][M]) {
-  float L[M][M];
+__device__ __forceinline__ void cholesky_floored(const float (&Pm)[M][M],
+                                                 float (&L)[M][M]) {
 #pragma unroll
   for (int i = 0; i < M; ++i)
 #pragma unroll
@@ -97,24 +94,40 @@ __device__ __forceinline__ void smoother_gain(const float (&Pm)[M][M],
       else
         L[i][j] = acc / L[j][j];
     }
+}
+
+// One row of the smoother gain: Jc = PAtc * inv(L L^T), by forward and
+// backward substitution.
+template <int M>
+__device__ __forceinline__ void gain_row(const float (&L)[M][M],
+                                         const float (&PAtc)[M],
+                                         float (&Jc)[M]) {
+  float y[M];
 #pragma unroll
-  for (int c = 0; c < M; ++c) {
-    float y[M];
+  for (int i = 0; i < M; ++i) {
+    float acc = PAtc[i];
 #pragma unroll
-    for (int i = 0; i < M; ++i) {
-      float acc = PAt[c][i];
-#pragma unroll
-      for (int k = 0; k < i; ++k) acc -= L[i][k] * y[k];
-      y[i] = acc / L[i][i];
-    }
-#pragma unroll
-    for (int i = M - 1; i >= 0; --i) {
-      float acc = y[i];
-#pragma unroll
-      for (int k = i + 1; k < M; ++k) acc -= L[k][i] * J[c][k];
-      J[c][i] = acc / L[i][i];
-    }
+    for (int k = 0; k < i; ++k) acc -= L[i][k] * y[k];
+    y[i] = acc / L[i][i];
   }
+#pragma unroll
+  for (int i = M - 1; i >= 0; --i) {
+    float acc = y[i];
+#pragma unroll
+    for (int k = i + 1; k < M; ++k) acc -= L[k][i] * Jc[k];
+    Jc[i] = acc / L[i][i];
+  }
+}
+
+// Smoother gain J = PAt * inv(Pm) for SPD Pm, row by row.
+template <int M>
+__device__ __forceinline__ void smoother_gain(const float (&Pm)[M][M],
+                                              const float (&PAt)[M][M],
+                                              float (&J)[M][M]) {
+  float L[M][M];
+  cholesky_floored<M>(Pm, L);
+#pragma unroll
+  for (int c = 0; c < M; ++c) gain_row<M>(L, PAt[c], J[c]);
 }
 
 // RTS covariance step: P_sm = sym(P_plus - J (Pm - P_sm_next) J^T), written

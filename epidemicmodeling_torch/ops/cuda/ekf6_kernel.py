@@ -5,15 +5,20 @@ Replaces the Pallas kernels behind ``ekf6_pallas``
 ``_bwd_kernel`` :286). Source: ``epidemicmodeling_torch/csrc/ekf6.cu``.
 
 What bounds it on the card: every lane is a sequential chain of T dependent
-steps (~1.5k flops forward, ~3k backward with IEEE divisions and square
-roots), so per-thread latency sets the time. ptxas gives the forward 254
-registers and the backward 167, with no spills; at 254 registers two
-128-thread blocks fit on an SM. The Pareto sweep feeds 25 x 235 = 5,875
-lanes per chunk: 46 blocks of 128 threads on 132 SMs. The design runs one thread
-per lane with the time loop inside the thread, (s, P) in registers,
-coalesced lanes-last loads, and no lane padding or time segments (the TPU
-kernel's segments and VMEM stash exist only for the TPU's memory); forward
-and backward are two launches on PyTorch's current stream.
+steps (~2.2k operations forward, ~1.3k backward with IEEE divisions and
+square roots), so latency sets the time unless the chain is spread. The
+design gives each lane a team of six threads, one per row of the 6x6
+matrices: a block holds LANES = 32 lanes in six warps,
+warp r being row r of every lane, so row stores stay coalesced across lanes
+in the lanes-last layout; the team exchanges rows through shared memory,
+the backward factors each P- once per lane in a pipeline (thread r forms
+row r of the factor M - r steps ahead), the forward keeps only the lower
+triangles of P- and P+ for it, and each step's inputs are prefetched with
+cp.async one step ahead. The
+Pareto sweep feeds 25 x 235 = 5,875 lanes per chunk: 184 blocks of 192
+threads on 132 SMs. No lane padding or time segments (the TPU kernel's
+segments and VMEM stash exist only for the TPU's memory); forward and
+backward are two launches on PyTorch's current stream.
 
 ``ekf6`` launches the kernel for CUDA tensors (float32, contiguous) and
 raises on anything it cannot take. For CPU tensors it runs ``ekf6_plain``,
@@ -35,6 +40,9 @@ from .ekf3_kernel import check_options, check_kernel_args
 M = 6
 NPI = 12
 NSCAL = 14
+# the kernel's team layout (csrc/ekf6.cu: LANES, BLOCK)
+LANES = 32
+BLOCK = M * LANES
 
 launches = 0
 
@@ -97,8 +105,9 @@ def ekf6(u, x, Rv, scal, vecs, s_init, Ps_init, s_final, Ps_final,
     out = dict(dtype=torch.float32, device=dev)
     S_MINUS = torch.empty((T, M, B), **out)
     S_PLUS = torch.empty((T, M, B), **out)
-    P_MINUS = torch.empty((T, M * M, B), **out)
-    P_PLUS = torch.empty((T, M * M, B), **out)
+    # the lower triangles of the symmetric covariances, row by row
+    P_MINUS = torch.empty((T, M * (M + 1) // 2, B), **out)
+    P_PLUS = torch.empty((T, M * (M + 1) // 2, B), **out)
     S_SMOOTH = torch.empty((T, M, B), **out)
     U_SM = torch.empty((T, NPI, B), **out)
     global launches

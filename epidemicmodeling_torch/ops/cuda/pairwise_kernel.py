@@ -7,9 +7,12 @@ Replaces the Pallas kernel behind ``social_forces_pallas``
 
 What bounds it on the card: operations, N * (N + O) pairs of 14 float32
 operations, an IEEE square root and division among them; the bytes are
-O(N + O). One thread per agent row loops over every source, staged through
-shared memory in tiles of 128; the ragged edges are masked by index, so
-nothing is padded.
+O(N + O). The grid splits the rows into tiles of THREADS * ROWS_PER_THREAD
+and the sources into chunks; each block stages its chunk into shared memory
+at once and sums each of its rows over it (ROWS_PER_THREAD rows a thread),
+writing per-chunk partial sums to a scratch tensor, which a second kernel
+sums per row in chunk order. ``pairwise_geometry`` picks the chunks. The
+ragged edges are masked by index, so nothing is padded.
 
 ``social_forces`` launches the kernel for CUDA tensors and raises on what it
 cannot take; for a CPU tensor it runs ``social_forces_plain``, the same law
@@ -21,7 +24,10 @@ positions' dtype. ``launches`` counts the kernel launches.
 from __future__ import annotations
 
 import ctypes
+import math
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from . import build as _build
@@ -29,9 +35,54 @@ from . import build as _build
 launches = 0
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIGNATURES = {"pairwise_forces": [_P, _P, _P, _I, _I, _F, _F, _F, _F, _P]}
+_SIGNATURES = {"pairwise_forces": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F,
+                                     _F, _F, _P]}
 _DTYPES = (torch.float32, torch.float64)
 F32 = torch.float32
+
+# The kernel's launch constants (csrc/pairwise.cu: THREADS, ROWS,
+# MIN_BLOCKS, MAX_CHUNK) and the card the grid is sized for (an H100's 132
+# SMs)
+THREADS = 256
+ROWS_PER_THREAD = 2
+MIN_BLOCKS_PER_SM = 2        # __launch_bounds__: registers for 2 blocks
+MAX_CHUNK = 4096             # sources a block stages: 32 KiB
+MIN_CHUNK = 128
+SMS = 132
+TARGET_BLOCKS = 8 * SMS      # enough blocks to fill every SM 8 deep
+
+
+class PairwiseGeometry(NamedTuple):
+    """The pairwise kernel's launch: a (row_tiles, chunks) grid of
+    ``threads``-thread blocks, each owning ``threads * rows_per_thread``
+    agent rows and ``chunk`` consecutive sources (the last chunk ragged)
+    staged in ``smem_bytes`` of shared memory; partial sums go to a
+    ``scratch`` (chunks, N, 2) float32 tensor."""
+    threads: int
+    rows_per_thread: int
+    row_tiles: int
+    chunks: int
+    chunk: int
+    smem_bytes: int
+    scratch: tuple
+
+
+def pairwise_geometry(N: int, O: int) -> PairwiseGeometry:
+    """The launch geometry for N agents and O obstacle points. Enough
+    source chunks that the grid has about TARGET_BLOCKS blocks, but none
+    smaller than MIN_CHUNK sources and none larger than MAX_CHUNK; the
+    chunk size is then evened out so that no chunk is empty."""
+    if N < 1 or O < 0:
+        raise ValueError(f"need N >= 1 and O >= 0 (got N={N}, O={O})")
+    M = N + O
+    row_tiles = math.ceil(N / (THREADS * ROWS_PER_THREAD))
+    chunks = max(min(math.ceil(TARGET_BLOCKS / row_tiles),
+                     math.ceil(M / MIN_CHUNK)),
+                 math.ceil(M / MAX_CHUNK))
+    chunk = math.ceil(M / chunks)
+    chunks = math.ceil(M / chunk)
+    return PairwiseGeometry(THREADS, ROWS_PER_THREAD, row_tiles, chunks,
+                            chunk, 8 * chunk, (chunks, N, 2))
 
 
 def _check_points(**named) -> None:
@@ -57,7 +108,12 @@ def pair_terms(pos, obstacle_xy, cfg, rows, dtype=F32):
     dx = r[:, 0:1] - src[None, :, 0]                              # (R, M)
     dy = r[:, 1:2] - src[None, :, 1]
     d2 = dx * dx + dy * dy
-    d = torch.sqrt(d2)
+    # the correctly rounded root, as IEEE sqrtf gives it on the card. On the
+    # CPU, PyTorch's root is MKL's vector math run from several threads, and
+    # its first call in a process can run one thread's share at low accuracy
+    # (PERF.md, Findings); NumPy's root is the IEEE one.
+    d = (torch.from_numpy(np.sqrt(d2.numpy())) if d2.device.type == "cpu"
+         else torch.sqrt(d2))
     col = torch.arange(M, device=pos.device)
     subject = col < N
     sign = torch.where(subject[None, :],
@@ -112,13 +168,18 @@ def social_forces(pos, obstacle_xy, cfg):
     out = torch.empty((N, 2), dtype=F32, device=pos.device)
     if N == 0:
         return out.to(pos.dtype)
+    if p.data_ptr() % 8 or (O and o.data_ptr() % 8):
+        raise ValueError("pos and obstacle_xy must start on an 8-byte "
+                         "boundary (the kernel reads (x, y) pairs)")
+    g = pairwise_geometry(N, O)
+    partial = torch.empty(g.scratch, dtype=F32, device=pos.device)
     lib = _build.load("pairwise", _SIGNATURES)
     global launches
     with torch.cuda.device(pos.device):
         stream = torch.cuda.current_stream(pos.device).cuda_stream
         code = lib.pairwise_forces(
-            p.data_ptr(), o.data_ptr(), out.data_ptr(), N, O,
-            float(cfg.subject_subject_weight),
+            p.data_ptr(), o.data_ptr(), partial.data_ptr(), out.data_ptr(),
+            N, O, g.chunk, g.chunks, float(cfg.subject_subject_weight),
             float(cfg.subject_obstacle_weight),
             float(cfg.inter_subject_opt_dist),
             float(cfg.no_further_effect_dist), stream)

@@ -5,8 +5,9 @@ card. Every test here needs a CUDA device and skips without one (the marker
     python -m pytest --noconftest -o addopts="" -p no:cacheprovider \
         tests/test_torch_cuda.py -q
 
-B = 300 lanes is not a multiple of the 128-thread block, so the ragged
-edge the kernels mask is exercised. Tolerances are those of the CPU tests
+B = 300 lanes is a multiple neither of ekf3's 128-thread block nor of
+ekf6's 32 lanes a block, so the ragged edge the kernels mask is exercised;
+ekf6 is also run at B = 1 and B = 45. Tolerances are those of the CPU tests
 (tests/test_ekf6_kernel.py:83-86,188-190): both sides run float32 in a
 different operation order, and roundoff compounds on the costates.
 
@@ -38,6 +39,7 @@ from epidemicmodeling_torch.spatial import (PopulationSimConfig,
 from epidemicmodeling_torch.spatial.agents import default_environment
 from epidemicmodeling_torch.spatial.walkers import walking_sources_sim
 
+from chip_smoke import PAIRWISE_ROW_BOUND, law_rows, row_err
 from tests._torch_helpers import (make_inputs, masked_err, packed_args,
                                   scaled_err)
 
@@ -87,6 +89,33 @@ def test_ekf6_kernel_matches_plain(cuda, obs_type, beta):
     r_ssm, r_usm, r_sp = ekf6_plain(*args, **kw)
     assert bool(torch.isfinite(usm).all())
     assert bool(torch.isfinite(ssm[:, :3]).all())
+    err, mismatch = masked_err(sp, r_sp)
+    assert err < 1e-3 and mismatch <= 1e-3
+    err, mismatch = masked_err(ssm, r_ssm)
+    assert err < 1e-2 and mismatch <= 1e-3
+    diff = (usm[T_hist:-1] != r_usm[T_hist:-1]).double().mean()
+    assert float(diff) <= 5e-3
+    assert bool((usm[-1] == 0).all())
+
+
+@pytest.mark.parametrize("B", [1, 45])
+@pytest.mark.parametrize("beta", [1.0, 0.9])
+@pytest.mark.parametrize("obs_type", ["NEWCASES", "TOTALCASES"])
+def test_ekf6_kernel_ragged_lanes(cuda, obs_type, beta, B):
+    """ekf6 with B not a multiple of its 32 lanes a block (a single lane,
+    and a block and a half), in both adaptive variants and both observation
+    types, at test_ekf6_kernel_matches_plain's tolerances."""
+    T_hist = 64
+    args = packed_args(6, make_inputs(6, B=B, T=96, T_hist=T_hist, seed=8,
+                                      obs_type=obs_type,
+                                      dtype=np.float32), cuda)
+    kw = dict(gamma_discount=0.995, obs_type=obs_type, beta=beta,
+              inv_monitor_len=21)
+    ssm, usm, sp = ekf6(*args, **kw)
+    torch.cuda.synchronize()
+    r_ssm, r_usm, r_sp = ekf6_plain(*args, **kw)
+    assert ssm.shape == (96, 6, B) and usm.shape == (96, 12, B)
+    assert bool(torch.isfinite(usm).all())
     err, mismatch = masked_err(sp, r_sp)
     assert err < 1e-3 and mismatch <= 1e-3
     err, mismatch = masked_err(ssm, r_ssm)
@@ -165,6 +194,28 @@ def test_pairwise_kernel_matches_plain(cuda, with_obstacles):
         assert float((got - ref).abs().max()) <= 1e-5 * scale
 
 
+@pytest.mark.parametrize("N,O", [(1, 0), (1, 914), (700, 0), (3000, 914)])
+def test_pairwise_kernel_edge_shapes(cuda, N, O):
+    """One agent; N not a multiple of the 512 rows a block; no obstacles;
+    sources spread over many chunks (pairwise_geometry: 1 to 24). Held row
+    by row against the plain law at chip_smoke's bound, and two launches on
+    the same input must agree bit for bit (fixed summation orders)."""
+    cfg = PopulationSimConfig(n_subjects=N)
+    _, obs = default_environment(cfg)
+    rng = np.random.default_rng(N + O)
+    pos = torch.tensor(rng.uniform([cfg.x_min, cfg.y_min],
+                                   [cfg.x_max, cfg.y_max], (N, 2)),
+                       dtype=torch.float32, device=cuda)
+    o = torch.tensor(obs[:O], dtype=torch.float32, device=cuda).reshape(-1, 2)
+    got = social_forces(pos, o, cfg)
+    again = social_forces(pos, o, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    ref = social_forces_plain(pos, o, cfg)
+    _, scale, slack = law_rows(pos, o, cfg, torch.arange(N, device=cuda))
+    assert row_err(got, ref, scale, slack) <= PAIRWISE_ROW_BOUND
+
+
 def test_spatial_kernels_refuse_what_they_cannot_take(cuda):
     C = torch.rand((6, 7), device=cuda)
     with pytest.raises(ValueError, match="float32 or float64"):
@@ -184,6 +235,8 @@ def test_spatial_kernels_refuse_what_they_cannot_take(cuda):
         social_forces(pos.T.contiguous().T, obs, cfg)
     with pytest.raises(ValueError, match="CUDA tensors on one device"):
         social_forces(pos, obs.cpu(), cfg)
+    with pytest.raises(ValueError, match="8-byte boundary"):
+        social_forces(pos.reshape(-1)[1:39].reshape(19, 2), obs, cfg)
 
 
 def test_spatial_entry_points_run_the_kernels(cuda):
