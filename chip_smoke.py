@@ -7,7 +7,7 @@ Run it from the root of a checkout on a machine with one CUDA card and the
 CUDA toolkit (nvcc). In order, it:
 
 1. finds the card (and fails without one);
-2. builds the four hand-written CUDA kernels from epidemicmodeling_torch/csrc/
+2. builds the hand-written CUDA kernels from epidemicmodeling_torch/csrc/
    (one nvcc per source, all started together) and prints their ptxas
    register and spill lines;
 3. holds each EKS kernel against its plain PyTorch version on the card,
@@ -24,15 +24,21 @@ CUDA toolkit (nvcc). In order, it:
 5. drives run_pipeline at the XPRIZE size (235 regions, 440 training days
    plus a 92-day horizon, 250 epsilons in chunks of 25, 500 Monte-Carlo
    schedules) cold then warm, counts the kernel launches of the warm run and
-   checks its outputs;
+   checks its outputs (one ekf3 launch per ekf3 call);
 6. holds the diffusion-stencil kernel against its plain version (both
    schemes, four shapes up to 8191 x 8193) and times kernel, plain version
-   and one conv2d as a yardstick;
+   and one conv2d as a yardstick; then holds the multi-step kernel (many
+   steps a launch) against the one-step loop, bit for bit, and against the
+   plain version, without and with dense sources, and its sparse
+   injections against the plain version;
 7. drives the spatial stack's three entry points on the card without
-   device=: diffusion_rollout (2048 x 2048, 249 steps, both schemes),
-   walking_sources_sim (1024 x 1024, 64 walkers, 500 steps) and
-   population_motion_sim (20,000 agents in the default environment, 200
-   steps, cold then warm), each with its checks and launch counts;
+   device=: diffusion_rollout (2048 x 2048, 249 steps, both schemes,
+   without and with dense sources, cold then warm from the example's NumPy
+   field, then warm from the field on the card, ms per step beside the
+   bound per step), walking_sources_sim (1024 x 1024, 64 walkers, 500
+   steps) and population_motion_sim (20,000 agents in the default
+   environment, 200 steps, cold then warm), each with its checks and launch
+   counts (ceil(n / K) stencil launches a rollout, one a sim step);
 8. holds the pairwise-force kernel against its plain version at N = 20,000
    (uniform positions and three frames of the sim's own trajectory) and times
    both, then times the kernel alone at N = 100,000 and holds 2,048 sampled
@@ -43,6 +49,11 @@ CUDA toolkit (nvcc). In order, it:
    of the plain law (no cutoff, no attraction, no obstacles, obstacle
    weight off by 20%) must read above the same bound. Every case is
    launched twice, and the two results must agree bit for bit.
+
+9. runs the card's roofline anchors (csrc/roofline.cu, the counterpart of
+   bench.py's Pallas microkernels): a 1 GB device-memory copy and a
+   512-deep FMA chain, held against their plain versions, and prints the
+   copy rate beside the 3.35 TB/s that bound() assumes.
 
 Every failed check raises, so the exit code is non-zero. Only when all
 phases pass does it print the kernel JSON line, the card's name and power
@@ -68,7 +79,8 @@ from epidemicmodeling_torch.data import (NPI_MAXES_DEFAULT,
                                          build_region_batch,
                                          preprocess_region, synthetic_regions)
 from epidemicmodeling_torch.ops.cuda import (build, ekf3_kernel, ekf6_kernel,
-                                             pairwise_kernel, stencil_kernel)
+                                             pairwise_kernel, roofline_kernel,
+                                             stencil_kernel)
 from epidemicmodeling_torch.pipelines import (PipelineConfig, run_pipeline,
                                               trained_params_from_numpy)
 from epidemicmodeling_torch.pipelines.core import (
@@ -190,8 +202,18 @@ ROW_CHUNK = 2048
 STENCIL_D, STENCIL_DT, STENCIL_DX, STENCIL_DY = 1e-1, 0.004, 0.1, 0.14
 STENCIL_SHAPES = ((51, 51), (234, 167), (2048, 2048), (8191, 8193))
 STENCIL_TIMED = ((2048, 2048), (8191, 8193))
+# the multi-step kernel: held bit for bit against the one-step loop at
+# these shapes over 3K + 1 steps (K steps a launch), and its sparse
+# injections against the plain version on the CPU, which adds duplicate
+# cells in walker order as the kernel does (bound: the float32 rounding of
+# a field of order one, STENCIL_BOUND)
+MULTI_SHAPES = ((234, 167), (1000, 777), (2048, 2048))
+INJECT_L, INJECT_W = 1024, 64
 # the example's parameters (examples/spatial_sims.py:30-31)
 ROLLOUT_L, ROLLOUT_STEPS = 2048, 249
+# the dense-source rollout: a point source of this strength a step at the
+# reference's first source cell
+ROLLOUT_SOURCE = 1e-3
 WALK_L, WALKERS, WALK_STEPS = 1024, 64, 500
 SIM_N, SIM_STEPS = 20_000, 200
 SIM_FRAMES = (0, 100, 199)
@@ -350,10 +372,14 @@ def kernel_cases(bt, bf, actual, cfg, device):
 def compare_kernel(name, tag, args, device, bounds, timed):
     k = KERNELS[name]
     kw = dict(gamma_discount=0.995)
+    before = LAUNCH_COUNTERS[name].launches
     got = k["run"](*args, **kw)
     ref = k["plain"](*args, **kw)
     torch.cuda.synchronize()
     T, _, B = args[0].shape
+    if name == "ekf3":
+        made = LAUNCH_COUNTERS[name].launches - before
+        check(made == 1, f"ekf3 {tag}: {made} launches for one call")
     check(all(o.device == device for o in got),
           f"{name} {tag}: kernel output not on {device}")
     if name == "ekf3":
@@ -603,6 +629,88 @@ def stencil_phase(device):
     return out
 
 
+def multistep_phase(device):
+    """The multi-step kernel: at MULTI_SHAPES, float32 and float64, both
+    schemes, 3K + 1 steps (K steps a launch, so four launches, the last of
+    one step), without and with a dense source stack, its frames equal the
+    one-step kernel's loop bit for bit (each cell is the same expression
+    in the same order) and the plain version within STENCIL_BOUND (float32;
+    float64 at 1e-12 relative); then sparse injections with duplicate cells
+    against the plain version on the CPU. Returns one dict per case."""
+    ax = STENCIL_D * STENCIL_DT / STENCIL_DX ** 2
+    ay = STENCIL_D * STENCIL_DT / STENCIL_DY ** 2
+    axy8 = STENCIL_D * STENCIL_DT / (STENCIL_DX ** 2 + STENCIL_DY ** 2)
+    gen = torch.Generator(device).manual_seed(6)
+    out = []
+    for dt in (F32, torch.float64):
+        k = stencil_kernel.STEPS_PER_LAUNCH[dt]
+        n = 3 * k + 1
+        bound_ = STENCIL_BOUND if dt == F32 else 1e-12
+        for shape in MULTI_SHAPES:
+            C = torch.rand(shape, generator=gen, device=device, dtype=dt)
+            src = 1e-2 * torch.rand((n,) + shape, generator=gen,
+                                    device=device, dtype=dt)
+            for eight in (False, True):
+                w = (ax, ay, axy8 if eight else 0.0)
+                for sources in (None, src):
+                    frames = torch.empty((n,) + shape, dtype=dt,
+                                         device=device)
+                    before = stencil_kernel.launches
+                    stencil_kernel.stencil_rollout(C, n, w, sources=sources,
+                                                   frames=frames)
+                    launched = stencil_kernel.launches - before
+                    cur, loop = C, []
+                    for t in range(n):
+                        x = cur if sources is None else cur + sources[t]
+                        cur = stencil_kernel.stencil(x, *w)
+                        loop.append(cur)
+                    plain = stencil_kernel.stencil_rollout_plain(
+                        C, n, w, sources=sources)
+                    torch.cuda.synchronize()
+                    bitwise = torch.equal(frames, torch.stack(loop))
+                    err = float(torch.abs(frames[-1] - plain).max())
+                    rel = err / float(torch.abs(plain).max())
+                    tag = (f"{shape[0]}x{shape[1]} {str(dt)[6:]} "
+                           f"{8 if eight else 4}-neighbour "
+                           f"{'dense sources' if sources is not None else 'no sources'}")
+                    log(f"kernel stencil multi-step [{tag}, {n} steps]: "
+                        f"launches={launched} equal to the one-step loop bit "
+                        f"for bit: {bitwise}; vs plain max_abs_err={err:.3e}")
+                    check(launched == -(-n // k),
+                          f"multi-step {tag}: {launched} launches")
+                    check(bitwise, f"multi-step {tag}: frames differ from "
+                                   "the one-step loop")
+                    check((err if dt == F32 else rel) <= bound_,
+                          f"multi-step {tag}: {err:.3e} from the plain "
+                          "version")
+                    out.append(dict(abs_err=err if dt == F32 else 0.0))
+    # sparse injections: 64 walkers a step over 3K + 1 steps, a third of
+    # them on one cell (duplicates sum in walker order), some on the
+    # boundary and some switched off (cell -1)
+    rng = np.random.default_rng(8)
+    n = 3 * stencil_kernel.STEPS_PER_LAUNCH[F32] + 1
+    L = INJECT_L
+    cells = rng.integers(0, L * L, (n, INJECT_W))
+    cells[:, ::3] = cells[:, :1]
+    cells[:, 1] = rng.integers(0, L, n)          # row 0, the boundary
+    cells[::2, 2] = -1
+    cells = torch.tensor(cells, dtype=torch.int32, device=device)
+    amounts = torch.rand((n, INJECT_W), generator=gen, device=device)
+    C = torch.rand((L, L), generator=gen, device=device)
+    got = stencil_kernel.stencil_rollout(C, n, (ax, ay, axy8), cells=cells,
+                                         amounts=amounts)
+    ref = stencil_kernel.stencil_rollout_plain(
+        C.cpu(), n, (ax, ay, axy8), cells=cells.cpu(), amounts=amounts.cpu())
+    err = float(torch.abs(got.cpu() - ref).max())
+    log(f"kernel stencil multi-step [{L}x{L} float32 8-neighbour, "
+        f"{INJECT_W} injections a step with duplicates, {n} steps]: vs "
+        f"plain (CPU, walker order) max_abs_err={err:.3e}")
+    check(err <= STENCIL_BOUND, f"sparse injections: {err:.3e} from the "
+                                "plain version")
+    out.append(dict(abs_err=err))
+    return out
+
+
 def conv2d_yardstick(C, ax, ay, axy, ref):
     """One torch.nn.functional.conv2d with the 3 x 3 weights over the
     interior, TF32 off: its time (ms) and its largest difference from the
@@ -622,37 +730,71 @@ def conv2d_yardstick(C, ax, ay, axy, ref):
     return ms, err
 
 
+def rollout_bound_ms(L: int, sources: bool) -> float:
+    """Least time of one rollout step at L x L float32 that keeps its
+    frame: one write of the frame, plus one read of the step's source."""
+    return bound((2 if sources else 1) * 4 * L * L,
+                 STENCIL_OPS[True] * (L - 2) ** 2)[0]
+
+
 def rollout_phase(device):
     """diffusion_rollout on the card without device=, both schemes, at the
     example's parameters on a 2048 x 2048 field with the reference's two
-    point sources (testCellularAutomataForPDESolution.m:25-26)."""
+    point sources (testCellularAutomataForPDESolution.m:25-26), without and
+    with a dense source stack (ROLLOUT_SOURCE a step at the first source
+    cell), each cold then warm from the example's NumPy field, then warm
+    from the same field already on the card (the NumPy field's float64 copy
+    to the card is part of the first two walls). Returns the warm walls by
+    case and input."""
     L = ROLLOUT_L
     C0 = np.zeros((L, L))
     C0[round(L / 2) - 1, round(L / 2) - 1] = 1.0
     C0[round(L / 3) - 1, round(L / 4) - 1] = 1.0
+    C0_card = torch.tensor(C0, dtype=F32, device=device)
+    src = torch.zeros((ROLLOUT_STEPS, L, L), dtype=F32, device=device)
+    src[:, round(L / 2) - 1, round(L / 2) - 1] = ROLLOUT_SOURCE
+    k = stencil_kernel.STEPS_PER_LAUNCH[F32]
+    walls = {}
     for nb in (4, 8):
-        reset_launches()
-        t0 = time.perf_counter()
-        traj = diffusion_rollout(C0, 1e-1, 0.01, 0.1, 0.1, ROLLOUT_STEPS,
-                                 neighborhood=nb, dtype=F32)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        n = read_launches()
-        # the support grows one cell per step and never reaches the frozen
-        # boundary, so the interior mass stays 2
-        mass_err = float(torch.abs(traj.sum(dim=(1, 2)) / 2.0 - 1.0).max())
-        log(f"diffusion_rollout {L}x{L} x {ROLLOUT_STEPS} steps, "
-            f"{nb}-neighbour: wall={wall:.3f}s mass_rel_err={mass_err:.2e} "
-            f"launches={n}")
-        check(traj.device == device
-              and tuple(traj.shape) == (ROLLOUT_STEPS + 1, L, L),
-              f"rollout: trajectory not (steps + 1, L, L) on {device}")
-        check(bool(torch.isfinite(traj).all()), "rollout: non-finite field")
-        check(mass_err <= 1e-4, f"rollout: mass {mass_err:.2e} > 1e-4")
-        check(n["stencil"] == ROLLOUT_STEPS,
-              f"rollout: {n['stencil']} stencil launches, expected "
-              f"{ROLLOUT_STEPS}")
-        del traj
+        for sources in (None, src):
+            case = f"{nb}-neighbour{'' if sources is None else ', sources'}"
+            for tag, field in (("cold", C0), ("warm", C0),
+                               ("warm, field on the card", C0_card)):
+                reset_launches()
+                t0 = time.perf_counter()
+                traj = diffusion_rollout(field, 1e-1, 0.01, 0.1, 0.1,
+                                         ROLLOUT_STEPS, neighborhood=nb,
+                                         sources=sources, dtype=F32)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                n = read_launches()
+                # the support grows one cell per step and never reaches the
+                # frozen boundary, so the interior mass is 2 plus what the
+                # sources added
+                mass = 2.0 + ROLLOUT_SOURCE * torch.arange(
+                    ROLLOUT_STEPS + 1, device=device, dtype=torch.float64
+                ) * (sources is not None)
+                mass_err = float(torch.abs(traj.sum(dim=(1, 2)) / mass
+                                           - 1.0).max())
+                per_step = wall / ROLLOUT_STEPS * 1e3
+                log(f"diffusion_rollout {L}x{L} x {ROLLOUT_STEPS} steps, "
+                    f"{case}, {tag}: wall={wall:.4f}s ({per_step:.4f} "
+                    f"ms/step; bound {rollout_bound_ms(L, sources is not None):.4f}"
+                    f" ms/step) mass_rel_err={mass_err:.2e} launches={n}")
+                check(traj.device == device
+                      and tuple(traj.shape) == (ROLLOUT_STEPS + 1, L, L),
+                      "rollout: trajectory not (steps + 1, L, L) on "
+                      f"{device}")
+                check(bool(torch.isfinite(traj).all()),
+                      "rollout: non-finite field")
+                check(mass_err <= 1e-4, f"rollout: mass {mass_err:.2e} > "
+                                        "1e-4")
+                check(n["stencil"] <= -(-ROLLOUT_STEPS // k),
+                      f"rollout: {n['stencil']} stencil launches, expected "
+                      f"at most ceil({ROLLOUT_STEPS} / {k})")
+                del traj
+                walls[f"{case}, {tag}"] = wall
+    return walls
 
 
 def walkers_phase(device):
@@ -670,7 +812,7 @@ def walkers_phase(device):
         n = read_launches()
         total = float(C.sum(dtype=torch.float64))
         log(f"walking_sources_sim {tag} {WALK_L}x{WALK_L}, {WALKERS} walkers "
-            f"x {WALK_STEPS} steps: wall={wall:.3f}s mass={total:.3f} of "
+            f"x {WALK_STEPS} steps: wall={wall:.4f}s mass={total:.3f} of "
             f"{injected:.0f} injected launches={n}")
     check(C.device == device and traj.device == device,
           f"walkers: output not on {device}")
@@ -679,8 +821,11 @@ def walkers_phase(device):
           "walkers: field not finite and >= 0")
     check(0 < total <= injected * (1 + 1e-5),
           f"walkers: mass {total} not in (0, {injected}]")
-    check(n["stencil"] == WALK_STEPS,
-          f"walkers: {n['stencil']} stencil launches, expected {WALK_STEPS}")
+    k = stencil_kernel.STEPS_PER_LAUNCH[F32]
+    check(n["stencil"] <= -(-WALK_STEPS // k),
+          f"walkers: {n['stencil']} stencil launches, expected at most "
+          f"ceil({WALK_STEPS} / {k})")
+    return wall
 
 
 def sim_phase(device):
@@ -718,9 +863,9 @@ def sim_phase(device):
     check(bool((a.abs() <= cfg.a_max * slack).all()), "sim: |a| > a_max")
     check(bool(torch.isfinite(res.C).all()) and float(res.C.sum()) > 0,
           "sim: field not finite with a positive sum")
-    check(n["pairwise"] == SIM_STEPS and n["stencil"] == 2 * SIM_STEPS,
+    check(n["pairwise"] == SIM_STEPS and n["stencil"] == SIM_STEPS,
           f"sim: launches {n}, expected pairwise {SIM_STEPS}, stencil "
-          f"{2 * SIM_STEPS}")
+          f"{SIM_STEPS} (one two-step launch a sim step)")
     return res, n
 
 
@@ -853,6 +998,42 @@ def pairwise_phase(device, sim_p):
     return out
 
 
+def roofline_phase(device):
+    """The card's roofline anchors: a copy (x + 1) of 1 GB and a 512-deep
+    fused multiply-add chain over 128 MB, each held against its plain
+    version and timed; prints the copy rate beside PEAK_BYTES_PER_S and the
+    FMA rate beside PEAK_F32_PER_S. Returns the two rates."""
+    gen = torch.Generator(device).manual_seed(9)
+    x = torch.rand(1 << 28, generator=gen, device=device)
+    check(torch.equal(roofline_kernel.copy_plus_one(x),
+                      roofline_kernel.copy_plus_one_plain(x)),
+          "roofline copy: differs from x + 1")
+    copy_ms = cuda_ms(lambda: roofline_kernel.copy_plus_one(x), reps=10)
+    plain_ms = cuda_ms(lambda: roofline_kernel.copy_plus_one_plain(x),
+                       reps=10)
+    rate = 2 * 4 * x.numel() / (copy_ms * 1e-3)
+    del x
+    y = torch.rand(1 << 25, generator=gen, device=device)
+    got, ref = (roofline_kernel.fma_chain(y),
+                roofline_kernel.fma_chain_plain(y))
+    rel = float((torch.abs(got.double() - ref.double())
+                 / torch.abs(ref.double())).max())
+    # one rounding to float32 a step, and the plain version's last one
+    check(rel <= (roofline_kernel.DEPTH + 1) * 2.0 ** -24,
+          f"roofline fma: {rel:.3e} from the float64 plain version")
+    fma_ms = cuda_ms(lambda: roofline_kernel.fma_chain(y), reps=5)
+    flops = 2 * roofline_kernel.DEPTH * y.numel() / (fma_ms * 1e-3)
+    log(f"roofline copy 1 GB (x + 1): {copy_ms:.4f} ms = "
+        f"{rate / 1e12:.4f} TB/s against the {PEAK_BYTES_PER_S / 1e12:.2f} "
+        f"TB/s bound() assumes ({rate / PEAK_BYTES_PER_S:.3f}); plain "
+        f"{plain_ms:.4f} ms")
+    log(f"roofline fma 512-deep over 128 MB: {fma_ms:.4f} ms = "
+        f"{flops / 1e12:.3f} TFLOP/s float32 against {PEAK_F32_PER_S / 1e12:.0f}"
+        f" ({flops / PEAK_F32_PER_S:.3f}); max rel err vs float64 plain "
+        f"{rel:.3e}")
+    return rate, flops
+
+
 def kernel_entries(measured, xprize_launches, stencil_cases, sim_launches,
                    pairwise_cases):
     """One entry per kernel for the JSON line: its launches on its path's
@@ -876,7 +1057,7 @@ def kernel_entries(measured, xprize_launches, stencil_cases, sim_launches,
             kernels[-1].update(active_ms=active["ms"],
                                active_plain_ms=active["plain_ms"])
     big = [m for m in stencil_cases
-           if m["ms"] is not None and m["eight"]][-1]
+           if m.get("ms") is not None and m["eight"]][-1]
     kernels.append(dict(
         max_abs_err=max(m["abs_err"] for m in stencil_cases), ms=big["ms"],
         plain_ms=big["plain_ms"], bound_ms=big["bound_ms"],
@@ -911,9 +1092,9 @@ def build_all():
     """Build every kernel, one nvcc per source, all started together, and
     print each one's ptxas register and spill lines."""
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        reports = list(pool.map(lambda n: build.build(n)[1], KERNELS))
-    for name, report in zip(KERNELS, reports):
+    with ThreadPoolExecutor(len(build.SOURCES)) as pool:
+        reports = list(pool.map(lambda n: build.build(n)[1], build.SOURCES))
+    for name, report in zip(build.SOURCES, reports):
         for line in report.splitlines():
             if any(w in line for w in ("Compiling entry", "registers",
                                        "spill")):
@@ -946,11 +1127,12 @@ def main():
     nnls_counts(device, bt)
 
     # the spatial stack (slice 2)
-    stencil_cases = stencil_phase(device)
+    stencil_cases = stencil_phase(device) + multistep_phase(device)
     rollout_phase(device)
     walkers_phase(device)
     sim, sim_launches = sim_phase(device)
     pairwise_cases = pairwise_phase(device, sim.p)
+    roofline_phase(device)
 
     kernels = kernel_entries(measured, xprize_launches, stencil_cases,
                              sim_launches, pairwise_cases)

@@ -130,27 +130,6 @@ __device__ __forceinline__ void smoother_gain(const float (&Pm)[M][M],
   for (int c = 0; c < M; ++c) gain_row<M>(L, PAt[c], J[c]);
 }
 
-// RTS covariance step: P_sm = sym(P_plus - J (Pm - P_sm_next) J^T), written
-// over P_sm_next.
-template <int M>
-__device__ __forceinline__ void smoothed_cov(const float (&Pp)[M][M],
-                                             const float (&Pm)[M][M],
-                                             const float (&J)[M][M],
-                                             float (&Psn)[M][M]) {
-  float Pd[M][M], JPd[M][M], JPdJt[M][M];
-#pragma unroll
-  for (int i = 0; i < M; ++i)
-#pragma unroll
-    for (int j = 0; j < M; ++j) Pd[i][j] = Pm[i][j] - Psn[i][j];
-  matmul<M>(J, Pd, JPd);
-  matmul_t<M>(JPd, J, JPdJt);
-#pragma unroll
-  for (int i = 0; i < M; ++i)
-#pragma unroll
-    for (int j = 0; j < M; ++j) Psn[i][j] = Pp[i][j] - JPdJt[i][j];
-  symmetrize<M>(Psn);
-}
-
 // Fixed-R adaptation window (GEKF.m:171-185), one per thread in local
 // memory: newest-first rolling means of the innovation and of its squared
 // deviation over the last L steps (zeros before the first step).

@@ -31,6 +31,7 @@ SOURCES = {
     "ekf6": ("ekf6.cu", "ekf_common.cuh"),
     "stencil": ("stencil.cu",),
     "pairwise": ("pairwise.cu",),
+    "roofline": ("roofline.cu",),
 }
 
 _lock = threading.Lock()

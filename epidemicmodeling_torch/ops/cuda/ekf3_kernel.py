@@ -5,23 +5,26 @@ Replaces the Pallas kernels behind ``ekf3_pallas``
 ``_bwd3_kernel`` :198). Source: ``epidemicmodeling_torch/csrc/ekf3.cu``.
 
 What bounds it on the card: every lane (filter) is a sequential chain of T
-dependent steps of ~300 flops, so per-thread latency sets the time, not
-bandwidth or flops; the train path has only 235 lanes, 2 blocks of 128
-threads on the H100's 132 SMs. The design runs one thread per lane with the
-time loop inside the thread, (s, P) in registers and coalesced lanes-last
-loads, and launches the forward filter and the backward smoother as two
-kernels on PyTorch's current stream. Spreading the few lanes over more SMs
-is later work.
+dependent forward steps, so the chain's latency sets the time, not bandwidth
+or flops. One launch runs forward and backward: each lane's step inputs are
+prefetched a chunk ahead into shared memory (cp.async), the per-lane
+constants sit in registers, the forward keeps each step's record in shared
+memory (or, when the lanes' histories do not fit, in a device-memory
+scratch), all threads of a block then form every smoother gain J(t) in
+parallel (J does not depend on the smoothed states), and the backward
+recursion left on the chain is a few operations a step. ``ekf3_geometry``
+restates the kernel's choice of lanes a block.
 
 ``ekf3`` launches the kernel for CUDA tensors (float32, contiguous) and
 raises on anything it cannot take. For CPU tensors it runs ``ekf3_plain``,
 the same computation on the port's batch-last core, in the inputs' dtype.
-``launches`` counts the kernel launches (one per forward+backward pair).
+``launches`` counts the kernel launches (one per call).
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -34,13 +37,48 @@ NPI = 12
 NSCAL = 11
 MAX_MONITOR = 64
 
+# csrc/ekf3.cu: threads a block, lanes a block at most, the SMs one wave
+# covers, a block's shared-memory limit (bytes), the input ring (steps a
+# slot, slots, inputs a step), and the floats of a step's record (all, and
+# those the backward recursion reads)
+THREADS = 128
+MAX_LANES = 32
+SMS = 132
+SMEM_LIMIT = 232448
+CHUNK = 8
+SLOTS = 2
+NIN = NPI + 2
+REC = 18
+RREC = 15
+
 launches = 0
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "ekf3_forward": [_P] * 11 + [_I, _I, _F, _I, _F, _F, _I, _P],
-    "ekf3_backward": [_P] * 8 + [_I, _I, _P],
+    "ekf3_smoother": [_P] * 12 + [_I, _I, _F, _I, _F, _F, _I, _P],
 }
+
+
+class Ekf3Geometry(NamedTuple):
+    lanes: int          # lanes a block (one thread each, warp 0)
+    blocks: int
+    smem_hist: bool     # the step records stay in shared memory
+    smem_bytes: int     # dynamic shared memory a block takes
+    hist_floats: int    # the device-memory scratch otherwise (T * REC * B)
+
+
+def ekf3_geometry(T: int, B: int) -> Ekf3Geometry:
+    """csrc/ekf3.cu's launch shape for (T, B): as many lanes a block as
+    their step records fit in SMEM_LIMIT (at most MAX_LANES), as long as the
+    blocks fit in one wave on SMS SMs; else MAX_LANES lanes a block with the
+    records in a scratch, read back through a ring of SLOTS x CHUNK rows."""
+    ring = SLOTS * CHUNK * NIN
+    fit = min(MAX_LANES, SMEM_LIMIT // (4 * (ring + T * REC)))
+    smem_hist = fit >= 1 and -(-B // fit) <= SMS
+    lanes = fit if smem_hist else MAX_LANES
+    per_lane = ring + (T * REC if smem_hist else SLOTS * CHUNK * RREC)
+    return Ekf3Geometry(lanes, -(-B // lanes), smem_hist, 4 * lanes * per_lane,
+                        0 if smem_hist else T * REC * B)
 
 
 def check_options(obs_type, beta, inv_monitor_len):
@@ -131,25 +169,20 @@ def ekf3(u, x, Rv, scal, vecs, s_init, Ps_init, s_final, Ps_final,
     out = dict(dtype=torch.float32, device=dev)
     S_MINUS = torch.empty((T, M3, B), **out)
     S_PLUS = torch.empty((T, M3, B), **out)
-    P_MINUS = torch.empty((T, M3 * M3, B), **out)
-    P_PLUS = torch.empty((T, M3 * M3, B), **out)
     S_SMOOTH = torch.empty((T, M3, B), **out)
+    g = ekf3_geometry(T, B)
+    hist = torch.empty((T, REC, B), **out) if g.hist_floats else None
     global launches
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.ekf3_forward(
+        code = lib.ekf3_smoother(
             u.data_ptr(), x.data_ptr(), Rv.data_ptr(), scal.data_ptr(),
             vecs.data_ptr(), s_init.data_ptr(), Ps_init.data_ptr(),
-            S_MINUS.data_ptr(), S_PLUS.data_ptr(), P_MINUS.data_ptr(),
-            P_PLUS.data_ptr(), T, B, float(gamma_discount),
-            int(obs_type == "TOTALCASES"), float(beta), float(1.0 - beta),
-            int(inv_monitor_len), stream)
-        _build.check(lib, "ekf3", "ekf3_forward", code)
-        code = lib.ekf3_backward(
-            S_PLUS.data_ptr(), S_MINUS.data_ptr(), P_PLUS.data_ptr(),
-            P_MINUS.data_ptr(), scal.data_ptr(), s_final.data_ptr(),
-            Ps_final.data_ptr(), S_SMOOTH.data_ptr(), T, B, stream)
-        _build.check(lib, "ekf3", "ekf3_backward", code)
+            s_final.data_ptr(), S_MINUS.data_ptr(), S_PLUS.data_ptr(),
+            S_SMOOTH.data_ptr(), None if hist is None else hist.data_ptr(),
+            T, B, float(gamma_discount), int(obs_type == "TOTALCASES"),
+            float(beta), float(1.0 - beta), int(inv_monitor_len), stream)
+    _build.check(lib, "ekf3", "ekf3_smoother", code)
     launches += 1
     return S_SMOOTH, S_PLUS, S_MINUS
 

@@ -15,7 +15,8 @@ testScripts/testPopulation2DMotionDynamics.m:
 
 The per-agent loops are (N, ...) tensor ops in a Python loop over steps. On
 the card the social forces run the pairwise kernel (ops/cuda/
-pairwise_kernel.py) and each diffusion step the stencil kernel.
+pairwise_kernel.py), and each sim step's exhalation and its two diffusion
+steps are one two-step launch of the stencil kernel, with per-step weights.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ import numpy as np
 import torch
 
 from ..ops.cuda.pairwise_kernel import forces_of_rows, social_forces
-from ..ops.cuda.stencil_kernel import stencil
+from ..ops.cuda.stencil_kernel import stencil_rollout
 from ..utils.device import resolve_device
 from .diffusion import as_field, stencil_weights
 
@@ -193,11 +194,13 @@ def population_motion_sim(cfg: PopulationSimConfig, n_steps: int,
     # only the marked agents exhale; adding 0.0 for the others, as the
     # reference does, changes no value
     m = min(cfg.n_marked, N)
-    amount = torch.full((m,), cfg.exhale_amount, dtype=dtype, device=dev)
+    amount = torch.full((1, m), cfg.exhale_amount, dtype=dtype, device=dev)
     ax, ay, axy = stencil_weights(cfg.diffusion_D, cfg.dt, cfg.dl, cfg.dl)
+    # the 4-neighbour step, then the 8-neighbour one
+    weights = ((ax, ay, 0.0), (ax, ay, axy))
     C = torch.zeros((Lx, Ly), dtype=dtype, device=dev)
     ix, iy = _cells(p, cfg, Lx, Ly)
-    C.view(-1).index_add_(0, ix[:m] * Ly + iy[:m], amount)
+    C.view(-1).index_add_(0, ix[:m] * Ly + iy[:m], amount[0])
 
     clip2 = lambda x, lim: torch.clamp(x, -lim, lim)
     traj = torch.empty((4, n_steps, N, 2), dtype=dtype, device=dev)
@@ -225,12 +228,12 @@ def population_motion_sim(cfg: PopulationSimConfig, n_steps: int,
             forces = _social_forces(p, obstacle_xy, cfg)
         a_next = clip2(a_next + forces.to(dtype), cfg.a_max)
 
-        # exhale at pre-update marked positions (a scatter-add: duplicate
-        # cells sum, as .at[].add does), then
-        # diffuse with both neighbourhood updates back to back (:176-189)
+        # exhale at pre-update marked positions (duplicate cells sum, as
+        # .at[].add does), then diffuse with both neighbourhood updates back
+        # to back (:176-189): one two-step call, injecting before the first
         ix, iy = _cells(p, cfg, Lx, Ly)
-        C.view(-1).index_add_(0, ix[:m] * Ly + iy[:m], amount)
-        C = stencil(stencil(C, ax, ay, 0.0), ax, ay, axy)
+        cells = (ix[:m] * Ly + iy[:m]).to(torch.int32)[None]
+        C = stencil_rollout(C, 2, weights, cells=cells, amounts=amount)
 
         p, v, a, jj = p_next, v_next, a_next, j_next
         for k, x in enumerate((p, v, a, jj)):

@@ -5,9 +5,11 @@ behaviour: testScripts/testCellularAutomataForPDESolution.m:43-49, explicit
 interior-point stencil updates with Dirichlet (frozen) boundaries and the
 CFL-style stability check at :35-37.
 
-Every step goes through the stencil wrapper (ops/cuda/stencil_kernel.py), so
-the device decides what runs it: the hand-written CUDA kernel for a field on
-the card, its plain PyTorch version for a field on the CPU.
+A rollout is one call of the multi-step stencil wrapper
+(ops/cuda/stencil_kernel.py), so the device decides what runs it: the
+hand-written CUDA kernel for a field on the card (ceil(n / K) launches, the
+sources added inside the kernel), its plain PyTorch version for a field on
+the CPU.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.cuda.stencil_kernel import stencil
+from ..ops.cuda.stencil_kernel import stencil, stencil_rollout
 from ..utils.device import resolve_device
 
 CFL_MESSAGE = ("Stability condition for parameters not fulfilled. "
@@ -88,7 +90,7 @@ def diffusion_rollout(C0, D, dt, dx, dy, n_steps, neighborhood: int = 4,
     traj = torch.empty((n_steps + 1,) + tuple(C0.shape), dtype=C0.dtype,
                        device=dev)
     traj[0] = C0
-    for t in range(n_steps):
-        C = traj[t] if sources is None else traj[t] + sources[t]
-        stencil(C, ax, ay, axy, out=traj[t + 1])
+    if n_steps > 0:
+        stencil_rollout(traj[0], n_steps, (ax, ay, axy), sources=sources,
+                        frames=traj[1:])
     return traj

@@ -1,35 +1,62 @@
 #!/usr/bin/env python3
-"""Time the ekf3, ekf6 and pairwise CUDA kernels against the first
-design of their sources, in one process on one card.
+"""Time the hand-written CUDA kernels against earlier designs of their
+sources, in one process on one card.
 
-    mkdir -p build/parent
+    mkdir -p build/parent build/base
     git archive 4f97d94 epidemicmodeling_torch/csrc | tar -x -C build/parent
-    python3 scripts/kernel_ab.py --old-csrc build/parent/epidemicmodeling_torch/csrc
+    git archive 925b1be epidemicmodeling_torch/csrc | tar -x -C build/base
+    python3 scripts/kernel_ab.py \\
+        --old-csrc build/parent/epidemicmodeling_torch/csrc \\
+        --base-csrc build/base/epidemicmodeling_torch/csrc
 
 Run it from the root of a checkout on a machine with one CUDA card and nvcc.
-The old sources must be those of commit 4f97d94, the last with the first
-designs of ekf6.cu and pairwise.cu: the script calls them through that
-commit's C interface, and it checks the parameter count of every function
-it calls in the old sources (OLD_SIGNATURES) and stops before loading
-anything if one differs. It builds the old ekf3.cu, ekf6.cu and pairwise.cu
-with the port's own nvcc flags (one nvcc each, started together) and prints
-their ptxas lines, then times the old and the new kernels in turns (old,
-new, new, old; each a median of CUDA-event timed warm runs) on the same
-inputs:
-- ekf3 and ekf6, forward and backward launched on their own, on the inputs
-  of chip_smoke.py's kernel phase: ekf3's two pipeline inputs (T = 440 and
-  532, B = 235); ekf6's at T = 532, B = 5,875, the pipeline's sweep chunk
-  (float32 overflow) and the two per-capita inputs;
+Any option may be left out; its legs are then skipped.
+
+--old-csrc: commit 4f97d94's sources, the first designs of ekf6.cu and
+pairwise.cu, called through that commit's C interface:
+- ekf6, forward and backward launched on their own, at T = 532, B = 5,875:
+  the pipeline's sweep chunk (float32 overflow) and the two per-capita
+  inputs of chip_smoke.py's kernel phase;
 - pairwise at N = 20,000 and 100,000 uniform agents in the default
   environment (chip_smoke.py's seeds); the old library is the
-  one-thread-per-row kernel (pos, obs, force, N, O, weights, stream).
-Last, it builds the old ekf6.cu once more without its backward's
-smoothed_cov call, whose result no output reads, and counts the SASS
-instructions of both backward kernels (cuobjdump), which says whether nvcc
-had dropped that dead work.
+  one-thread-per-row kernel (pos, obs, force, N, O, weights, stream);
+- the old ekf6.cu built once more without its backward's smoothed_cov
+  call, whose result no output reads, and the SASS instructions of both
+  backward kernels counted (cuobjdump): whether nvcc had dropped that work.
+--base-csrc: commit 925b1be's sources, the designs of ekf3.cu and
+stencil.cu before the fused ekf3 and the multi-step stencil:
+- ekf3 on chip_smoke.py's two pipeline inputs (T = 440 and 532, B = 235):
+  the old forward and backward launches against the one fused launch;
+- the stencil's single step at 2048 x 2048 and 8191 x 8193, both schemes,
+  each a loop of STENCIL_REPS back-to-back launches through ctypes, so that
+  the device, not the host, sets the time; and the 2048 x 2048 rollout of
+  249 steps that keeps every frame: the old kernel launched once a step
+  against the new one's single call (ceil(249 / 8) launches), and the new
+  one keeping only the last field.
+--stencil-variant NAME (repeatable): a stencil.cu design tried and not
+kept, made from the port's source by the edits in STENCIL_VARIANTS
+(unroll2: the row loop unrolled two rows deep, not four; src_ahead: also
+the next step's dense source loaded two rows ahead), held bit for bit
+against the port's stencil and timed against it in turns on the 2048 x
+2048 rollout (every frame, last field only, 4-neighbour, dense sources),
+500 steps of 64 sparse injections on 1024 x 1024, and the 8191 x 8193
+single step.
+--ekf3-variant FILE (repeatable): another ekf3.cu with the port's C
+interface (scripts/variants/ekf3_team.cu: the forward on a team of three
+threads a lane), its outputs compared with the port's kernel and timed
+against it in turns on chip_smoke.py's two pipeline inputs and on the
+larger one widened to B = 1,000 (step records in the device scratch).
+Variants are built with -I on the port's csrc/, so they may include its
+headers.
 
-It prints one JSON line with every time and, last, the card's name and
-power limit. Needs no network; writes only under build/.
+For every source set it checks the parameter count of every function it
+calls (OLD_SIGNATURES, BASE_SIGNATURES) and stops before loading anything
+if one differs. It builds the old sources with the port's own nvcc flags
+(one nvcc each, started together) and prints their ptxas lines, then times
+old and new in turns (old, new, new, old; each a median of CUDA-event timed
+warm runs) on the same inputs. It prints one JSON line with every time and,
+last, the card's name and power limit. Needs no network; writes only under
+build/.
 """
 
 from __future__ import annotations
@@ -51,24 +78,57 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke as cs  # noqa: E402
 from epidemicmodeling_torch.ops.cuda import (build,  # noqa: E402
                                              ekf3_kernel, ekf6_kernel,
-                                             pairwise_kernel)
+                                             pairwise_kernel, stencil_kernel)
 from epidemicmodeling_torch.spatial import PopulationSimConfig  # noqa: E402
 from epidemicmodeling_torch.spatial.agents import \
     default_environment  # noqa: E402
 
 F32 = torch.float32
 OUT = build.BUILD_DIR.parent / "kernel_ab"
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
 EKF6_SIG = {"ekf6_forward": [_P] * 11 + [_I, _I, _F, _I, _F, _F, _I, _P],
             "ekf6_backward": [_P] * 11 + [_I, _I, _P]}
 EKF3_SIG = {"ekf3_forward": [_P] * 11 + [_I, _I, _F, _I, _F, _F, _I, _P],
             "ekf3_backward": [_P] * 8 + [_I, _I, _P]}
-# the C interface of the old sources, by file
+STENCIL_SIG = {"stencil_f32": [_P, _P, _I, _I, _D, _D, _D, _D, _P],
+               "stencil_f64": [_P, _P, _I, _I, _D, _D, _D, _D, _P]}
+# the C interface of the old sources, by file: commit 4f97d94's, and commit
+# 925b1be's
 OLD_SIGNATURES = {
-    "ekf3": EKF3_SIG, "ekf6": EKF6_SIG,
+    "ekf6": EKF6_SIG,
     "pairwise": {"pairwise_forces": [_P, _P, _P, _I, _I, _F, _F, _F, _F,
                                      _P]}}
+BASE_SIGNATURES = {"ekf3": EKF3_SIG, "stencil": STENCIL_SIG}
 ORDER = ("old", "new", "new", "old")
+STENCIL_REPS = 20
+# stencil.cu designs tried and not kept, as edits of the port's source: each
+# (old, new) pair must occur once in it
+_ROW_WINDOW = ("      T dl = buf0[off_d - 1], d = buf0[off_d], dr = "
+               "buf0[off_d + 1];\n")
+_SRC_STORE = ("              buf0[off_m + to_nxt] = add_rn(v, *sp);\n"
+              "              sp += Ly;\n")
+STENCIL_VARIANTS = {
+    # the row loop unrolled two rows deep, not four
+    "unroll2": [("#pragma unroll 4\n", "#pragma unroll 2\n")],
+    # unrolled two deep, and the next step's dense source loaded two rows
+    # ahead of its use
+    "src_ahead": [
+        ("#pragma unroll 4\n", "#pragma unroll 2\n"),
+        (_ROW_WINDOW, _ROW_WINDOW
+         + "      T src0 = T(0), src1 = T(0);\n"
+           "      if constexpr (SRC) {\n"
+           "        if (!last) {\n"
+           "          src0 = sp[0];\n"
+           "          if (r0 + 1 < r1) src1 = sp[Ly];\n"
+           "        }\n"
+           "      }\n"),
+        (_SRC_STORE,
+         "              const T src2 = r + 2 < r1 ? sp[2 * Ly] : T(0);\n"
+         "              buf0[off_m + to_nxt] = add_rn(v, src0);\n"
+         "              src0 = src1;\n"
+         "              src1 = src2;\n"
+         "              sp += Ly;\n")],
+}
 
 
 def n_params(source: str, fn: str) -> int:
@@ -79,28 +139,27 @@ def n_params(source: str, fn: str) -> int:
     return m.group(1).count(",") + 1
 
 
-def check_old_interface(csrc: Path) -> None:
+def check_old_interface(csrc: Path, signatures: dict, commit: str) -> None:
     """Stop unless every function this script calls in the old sources has
-    the parameter count it passes (the old sources must be commit
-    4f97d94's)."""
-    for name, sig in OLD_SIGNATURES.items():
+    the parameter count it passes (the old sources must be ``commit``'s)."""
+    for name, sig in signatures.items():
         text = (csrc / f"{name}.cu").read_text()
         for fn, argtypes in sig.items():
             if n_params(text, fn) != len(argtypes):
                 raise SystemExit(
                     f"{csrc / name}.cu: {fn} takes {n_params(text, fn)} "
                     f"parameters, this script passes {len(argtypes)}; it "
-                    "compares against commit 4f97d94's sources only")
+                    f"compares against commit {commit}'s sources only")
 
 
-def build_old(csrc: Path):
-    """nvcc the old ekf3.cu, ekf6.cu and pairwise.cu; returns {name: ctypes
+def build_old(csrc: Path, signatures: dict, commit: str):
+    """nvcc the old sources named in ``signatures``; returns {name: ctypes
     lib}."""
-    check_old_interface(csrc)
+    check_old_interface(csrc, signatures, commit)
     OUT.mkdir(parents=True, exist_ok=True)
 
     def one(name):
-        so = OUT / f"old_{name}.so"
+        so = OUT / f"old_{commit}_{name}.so"
         proc = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o",
                                str(so), str(csrc / f"{name}.cu")],
                               capture_output=True, text=True, check=False)
@@ -109,13 +168,14 @@ def build_old(csrc: Path):
                                f"{proc.stderr}")
         for line in proc.stderr.splitlines():
             if "registers" in line or "spill" in line:
-                print(f"  ptxas old {name}: {line.strip()}", flush=True)
+                print(f"  ptxas old {commit} {name}: {line.strip()}",
+                      flush=True)
         return so
 
-    with ThreadPoolExecutor(len(OLD_SIGNATURES)) as pool:
-        paths = dict(zip(OLD_SIGNATURES, pool.map(one, OLD_SIGNATURES)))
+    with ThreadPoolExecutor(len(signatures)) as pool:
+        paths = dict(zip(signatures, pool.map(one, signatures)))
     libs = {}
-    for name, sig in OLD_SIGNATURES.items():
+    for name, sig in signatures.items():
         lib = ctypes.CDLL(str(paths[name]))
         for fn, argtypes in sig.items():
             getattr(lib, fn).argtypes = argtypes
@@ -124,9 +184,31 @@ def build_old(csrc: Path):
     return libs
 
 
-def ekf_launchers(name, lib, args, device):
-    """(forward, backward, S_SMOOTH) for one ekf3 / ekf6 library on ``args``
-    (NEWCASES, fixed R, gamma 0.995, as the pipeline runs them)."""
+def turns(runs: dict, reps: int) -> dict:
+    """Each of runs["old"], runs["new"] timed in the turns ORDER; returns
+    {version: [ms, ms]}."""
+    times = {v: [] for v in runs}
+    for v in ORDER:
+        times[v].append(cs.cuda_ms(runs[v], reps=reps))
+    return times
+
+
+def pipeline_cases(device, names):
+    """chip_smoke.py's kernel cases of the kernels ``names``."""
+    bt, bf, actual, _ = cs.xprize_inputs(cs.R_REGIONS, cs.T_HIST, cs.HORIZON,
+                                         seed=0)
+    cfg = cs.PipelineConfig(backend="pallas", smoother_gain="solve",
+                            pareto_chunk=cs.CHUNK,
+                            num_monte_carlo=cs.N_MC)
+    for name, tag, args, _, _ in cs.kernel_cases(bt, bf, actual, cfg,
+                                                 device):
+        if name in names:
+            yield name, tag, args
+
+
+def old_ekf_launchers(name, lib, args, device):
+    """(forward, backward, S_SMOOTH) for an old ekf3 / ekf6 library on
+    ``args`` (NEWCASES, fixed R, gamma 0.995, as the pipeline runs them)."""
     u, x, Rv, scal, vecs, s_init, Ps_init, s_final, Ps_final = args
     T, _, B = u.shape
     m = s_init.shape[0]
@@ -158,19 +240,13 @@ def ekf_launchers(name, lib, args, device):
     return forward, backward, S_SMOOTH
 
 
-def ekf_ab(libs, device):
-    bt, bf, actual, _ = cs.xprize_inputs(cs.R_REGIONS, cs.T_HIST, cs.HORIZON,
-                                         seed=0)
-    cfg = cs.PipelineConfig(backend="pallas", smoother_gain="solve",
-                            pareto_chunk=cs.CHUNK,
-                            num_monte_carlo=cs.N_MC)
-    new_libs = {"ekf3": build.load("ekf3", ekf3_kernel._SIGNATURES),
-                "ekf6": build.load("ekf6", ekf6_kernel._SIGNATURES)}
+def ekf6_ab(libs, device):
+    """ekf6: the old forward and backward against the new ones."""
+    new_lib = build.load("ekf6", ekf6_kernel._SIGNATURES)
     out = {}
-    for name, tag, args, _, _ in cs.kernel_cases(bt, bf, actual, cfg,
-                                                 device):
-        runs = {v: ekf_launchers(name, libs[name] if v == "old"
-                                 else new_libs[name], args, device)
+    for name, tag, args in pipeline_cases(device, ("ekf6",)):
+        runs = {v: old_ekf_launchers(name, libs[name] if v == "old"
+                                     else new_lib, args, device)
                 for v in ("old", "new")}
         times = {v: {"fwd_ms": [], "bwd_ms": []} for v in runs}
         for v in ORDER:
@@ -194,6 +270,305 @@ def ekf_ab(libs, device):
               f"{m['new']['fwd_ms']:.4f} + {m['new']['bwd_ms']:.4f} = "
               f"{m['new']['ms']:.4f} ms; S_SMOOTH old vs new "
               f"{m['s_smooth_old_vs_new']}", flush=True)
+    return out
+
+
+def ekf3_ab(libs, device):
+    """ekf3: the old forward and backward launches against the one fused
+    launch, on the pipeline's two inputs."""
+    new_lib = build.load("ekf3", ekf3_kernel._SIGNATURES)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    p = lambda t: t.data_ptr()
+    out = {}
+    for _, tag, args in pipeline_cases(device, ("ekf3",)):
+        u, x, Rv, scal, vecs, s_init, Ps_init, s_final, _ = args
+        T, _, B = u.shape
+        fwd, bwd, old_sm = old_ekf_launchers("ekf3", libs["ekf3"], args,
+                                             device)
+        e = lambda: torch.empty((T, 3, B), dtype=F32, device=device)
+        S_MINUS, S_PLUS, new_sm = e(), e(), e()
+        g = ekf3_kernel.ekf3_geometry(T, B)
+        hist = (torch.empty((T, ekf3_kernel.REC, B), dtype=F32,
+                            device=device) if g.hist_floats else None)
+
+        def new():
+            code = new_lib.ekf3_smoother(
+                p(u), p(x), p(Rv), p(scal), p(vecs), p(s_init), p(Ps_init),
+                p(s_final), p(S_MINUS), p(S_PLUS), p(new_sm),
+                None if hist is None else p(hist), T, B, 0.995, 0, 1.0, 0.0,
+                21, stream)
+            assert code == 0, f"ekf3_smoother: CUDA error {code}"
+
+        def old():
+            fwd()
+            bwd()
+
+        times = turns({"old": old, "new": new}, reps=10)
+        torch.cuda.synchronize()
+        m = {v: float(np.mean(ts)) for v, ts in times.items()}
+        err = cs.scaled_err(new_sm, old_sm)
+        ns = {v: m[v] * 1e6 / (T * B) for v in m}
+        out[f"ekf3 {tag}"] = dict(old_ms=m["old"], new_ms=m["new"],
+                                  runs=times, T=T, B=B,
+                                  ns_per_lane_step=ns, lanes_a_block=g.lanes,
+                                  s_smooth_old_vs_new=err)
+        print(f"ekf3 [{tag}] T={T} B={B}: old {m['old']:.4f} ms (two "
+              f"launches), new {m['new']:.4f} ms (one; {g.lanes} lanes a "
+              f"block); ns per lane-step old {ns['old']:.2f} new "
+              f"{ns['new']:.2f}; runs {times}; S_SMOOTH old vs new "
+              f"{err:.3e}", flush=True)
+    return out
+
+
+def stencil_ab(libs, device):
+    """The stencil: single steps and the 2048 x 2048 rollout, old kernel
+    (one launch a step) against the new one."""
+    new_lib = build.load("stencil", stencil_kernel._SIGNATURES)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    old_lib = libs["stencil"]
+    ax = cs.STENCIL_D * cs.STENCIL_DT / cs.STENCIL_DX ** 2
+    ay = cs.STENCIL_D * cs.STENCIL_DT / cs.STENCIL_DY ** 2
+    axy8 = cs.STENCIL_D * cs.STENCIL_DT / (cs.STENCIL_DX ** 2
+                                           + cs.STENCIL_DY ** 2)
+    launched = ctypes.c_int(0)
+
+    def new_call(C, dst, scratch, n, w, keep):
+        weights = (ctypes.c_double * (3 * n))(*(w * n))
+        code = new_lib.stencil_rollout_f32(
+            C.data_ptr(), dst.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), None, None,
+            None, 0, 0, C.shape[0], C.shape[1], n, weights, keep,
+            ctypes.byref(launched), stream)
+        assert code == 0, f"stencil_rollout_f32: CUDA error {code}"
+
+    def old_call(C, dst, w):
+        c0 = 1.0 - 2.0 * w[0] - 2.0 * w[1] - 4.0 * w[2]
+        code = old_lib.stencil_f32(C.data_ptr(), dst.data_ptr(), C.shape[0],
+                                   C.shape[1], c0, *w, stream)
+        assert code == 0, f"old stencil_f32: CUDA error {code}"
+
+    out = {}
+    gen = torch.Generator(device).manual_seed(5)
+    for shape in cs.STENCIL_TIMED:
+        C = torch.rand(shape, generator=gen, device=device)
+        dst = torch.empty_like(C)
+        for eight in (False, True):
+            w = (ax, ay, axy8 if eight else 0.0)
+
+            def old():
+                for _ in range(STENCIL_REPS):
+                    old_call(C, dst, w)
+
+            def new():
+                for _ in range(STENCIL_REPS):
+                    new_call(C, dst, None, 1, w, 0)
+
+            times = turns({"old": old, "new": new}, reps=5)
+            m = {v: float(np.mean(ts)) / STENCIL_REPS for v, ts in
+                 times.items()}
+            key = f"{shape[0]}x{shape[1]} {8 if eight else 4}-neighbour"
+            out[key] = dict(old_ms=m["old"], new_ms=m["new"], runs=times)
+            print(f"stencil [{key}] one step: old {m['old']:.4f} ms, new "
+                  f"{m['new']:.4f} ms ({STENCIL_REPS} launches back to back, "
+                  f"runs {times})", flush=True)
+    L, n = cs.ROLLOUT_L, cs.ROLLOUT_STEPS
+    traj = torch.zeros((n + 1, L, L), device=device)
+    traj[0, L // 2, L // 2] = 1.0
+    last, scratch = torch.empty((L, L), device=device), torch.empty(
+        (L, L), device=device)
+    w = (0.1 * 0.01 / 0.1 ** 2, 0.1 * 0.01 / 0.1 ** 2,
+         0.1 * 0.01 / (2 * 0.1 ** 2))
+
+    def old_roll():
+        for t in range(n):
+            old_call(traj[t], traj[t + 1], w)
+
+    runs = {"old": old_roll,
+            "new": lambda: new_call(traj[0], traj[1], None, n, w, 1),
+            "new, last field only": lambda: new_call(traj[0], last, scratch,
+                                                     n, w, 0)}
+    times = {v: [] for v in runs}
+    for v in ("old", "new", "new, last field only", "new, last field only",
+              "new", "old"):
+        times[v].append(cs.cuda_ms(runs[v], reps=5))
+    ref = traj.clone()
+    old_roll()
+    torch.cuda.synchronize()
+    m = {v: float(np.mean(ts)) for v, ts in times.items()}
+    err = float((traj - ref).abs().max())
+    out[f"rollout {L}x{L} x {n}"] = dict(ms=m, runs=times,
+                                         new_launches=launched.value,
+                                         max_abs_old_vs_new=err)
+    print(f"stencil rollout {L}x{L} x {n} steps, 8-neighbour, every frame: "
+          f"old {m['old']:.4f} ms ({n} launches), new {m['new']:.4f} ms; "
+          f"new keeping the last field only {m['new, last field only']:.4f} "
+          f"ms ({launched.value} launches); runs {times}; max |old - new| "
+          f"{err:.3e}", flush=True)
+    return out
+
+
+def build_variant(variant: Path, signatures: dict):
+    """nvcc a variant of a port kernel's source (it may include the port's
+    headers) and bind the functions of ``signatures``, which must have the
+    port's parameter counts; prints its ptxas lines."""
+    text = variant.read_text()
+    for fn, sig in signatures.items():
+        if n_params(text, fn) != len(sig):
+            raise SystemExit(f"{variant}: {fn} takes another parameter list "
+                             "than the port's")
+    OUT.mkdir(parents=True, exist_ok=True)
+    so = OUT / f"variant_{variant.stem}.so"
+    proc = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-I",
+                           str(build.CSRC), "-o", str(so), str(variant)],
+                          capture_output=True, text=True, check=False)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {variant}:\n{proc.stderr}")
+    for line in proc.stderr.splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"  ptxas {variant.name}: {line.strip()}", flush=True)
+    lib = ctypes.CDLL(str(so))
+    for fn, sig in signatures.items():
+        getattr(lib, fn).argtypes = sig
+        getattr(lib, fn).restype = ctypes.c_int
+    return lib
+
+
+def ekf3_variant_ab(variant: Path, device):
+    """An ekf3.cu variant ("old") against the port's ekf3 ("new") on the
+    pipeline's two inputs and at B = 1,000 (records in the scratch): the
+    outputs compared, then times in turns."""
+    libs = {"old": build_variant(variant, ekf3_kernel._SIGNATURES),
+            "new": build.load("ekf3", ekf3_kernel._SIGNATURES)}
+    stream = torch.cuda.current_stream(device).cuda_stream
+    p = lambda t: None if t is None else t.data_ptr()
+    cases = [(tag, args) for _, tag, args in pipeline_cases(device,
+                                                            ("ekf3",))]
+    u, x, Rv, scal, vecs, s_init, Ps_init, s_final, Ps_final = cases[-1][1]
+    wide = lambda a: a.repeat(*(1,) * (a.dim() - 1), 5)[..., :1000] \
+        .contiguous()
+    cases.append(("actual scenario, B = 1,000", tuple(
+        wide(a) for a in (u, x, Rv, scal, vecs, s_init, Ps_init, s_final,
+                          Ps_final))))
+    out = {}
+    for tag, args in cases:
+        u, x, Rv, scal, vecs, s_init, Ps_init, s_final, _ = args
+        T, _, B = u.shape
+        g = ekf3_kernel.ekf3_geometry(T, B)
+        hist = (torch.empty((T, ekf3_kernel.REC, B), dtype=F32,
+                            device=device) if g.hist_floats else None)
+        res = {v: [torch.empty((T, 3, B), dtype=F32, device=device)
+                   for _ in range(3)] for v in libs}
+
+        def run(v):
+            sm, sp, ss = res[v]
+            code = libs[v].ekf3_smoother(
+                p(u), p(x), p(Rv), p(scal), p(vecs), p(s_init), p(Ps_init),
+                p(s_final), p(sm), p(sp), p(ss), p(hist), T, B, 0.995, 0,
+                1.0, 0.0, 21, stream)
+            assert code == 0, f"ekf3_smoother: CUDA error {code}"
+
+        times = turns({v: (lambda v=v: run(v)) for v in libs}, reps=10)
+        torch.cuda.synchronize()
+        equal = all(torch.equal(a, b) for a, b in zip(res["old"],
+                                                      res["new"]))
+        err = cs.scaled_err(res["old"][2], res["new"][2])
+        m = {v: float(np.mean(ts)) for v, ts in times.items()}
+        out[tag] = dict(variant_ms=m["old"], port_ms=m["new"], runs=times,
+                        T=T, B=B, lanes_a_block=g.lanes,
+                        equal_bit_for_bit=equal, s_smooth_err=err)
+        print(f"ekf3 variant {variant.name} [{tag}] T={T} B={B}: variant "
+              f"{m['old']:.4f} ms, port {m['new']:.4f} ms (runs {times}); "
+              f"equal bit for bit {equal}, S_SMOOTH scaled error {err:.3e}",
+              flush=True)
+    return out
+
+
+def stencil_variant_source(name: str) -> Path:
+    """The port's stencil.cu with STENCIL_VARIANTS[name]'s edits, written
+    under build/."""
+    text = (build.CSRC / "stencil.cu").read_text()
+    for old, new in STENCIL_VARIANTS[name]:
+        if text.count(old) != 1:
+            raise SystemExit(f"stencil variant {name}: {old!r} does not occur "
+                             "once in the port's stencil.cu")
+        text = text.replace(old, new)
+    OUT.mkdir(parents=True, exist_ok=True)
+    path = OUT / f"stencil_{name}.cu"
+    path.write_text(text)
+    return path
+
+
+def stencil_variant_ab(name: str, device):
+    """A stencil.cu variant ("old") against the port's stencil ("new"):
+    equal results, then times in turns."""
+    variant = stencil_variant_source(name)
+    libs = {"old": build_variant(
+        variant, {"stencil_rollout_f32":
+                  stencil_kernel._SIGNATURES["stencil_rollout_f32"]}),
+            "new": build.load("stencil", stencil_kernel._SIGNATURES)}
+    stream = torch.cuda.current_stream(device).cuda_stream
+    launched = ctypes.c_int(0)
+
+    def call(lib, C, dst, n, w, keep, src=None, cells=None, amts=None,
+             scratch=None):
+        p = lambda t: None if t is None else t.data_ptr()
+        ws = (ctypes.c_double * (3 * n))(*(w * n))
+        code = lib.stencil_rollout_f32(
+            C.data_ptr(), dst.data_ptr(), p(scratch), p(src), p(cells),
+            p(amts), 0 if cells is None else cells.shape[1],
+            0 if cells is None else cells.shape[0], C.shape[0], C.shape[1],
+            n, ws, keep, ctypes.byref(launched), stream)
+        assert code == 0, f"stencil_rollout_f32: CUDA error {code}"
+
+    L, n = cs.ROLLOUT_L, cs.ROLLOUT_STEPS
+    w8, w4 = (0.1, 0.1, 0.05), (0.1, 0.1, 0.0)
+    traj = torch.zeros((n + 1, L, L), device=device)
+    traj[0, L // 2, L // 2] = 1.0
+    src = torch.zeros((n, L, L), device=device)
+    src[:, L // 3, L // 4] = 1e-3
+    last, scratch = (torch.empty((L, L), device=device) for _ in range(2))
+    gen = torch.Generator(device).manual_seed(2)
+    W = cs.WALK_L
+    field = torch.rand((W, W), generator=gen, device=device)
+    cells = torch.randint(0, W * W, (cs.WALK_STEPS, cs.WALKERS),
+                          generator=gen, device=device, dtype=torch.int32)
+    amts = torch.ones((cs.WALK_STEPS, cs.WALKERS), device=device)
+    walk_out, walk_scratch = torch.empty_like(field), torch.empty_like(field)
+    big = torch.rand((8191, 8193), generator=gen, device=device)
+    big_out = torch.empty_like(big)
+    cases = {
+        "rollout 2048 every frame": lambda lib: call(lib, traj[0], traj[1],
+                                                     n, w8, 1),
+        "rollout 2048 last field": lambda lib: call(lib, traj[0], last, n,
+                                                    w8, 0, scratch=scratch),
+        "rollout 2048 last field, 4-neighbour": lambda lib: call(
+            lib, traj[0], last, n, w4, 0, scratch=scratch),
+        "rollout 2048 every frame, dense sources": lambda lib: call(
+            lib, traj[0], traj[1], n, w8, 1, src),
+        "walkers 1024 x 500": lambda lib: call(
+            lib, field, walk_out, cs.WALK_STEPS, w4, 0, None, cells, amts,
+            walk_scratch),
+        "single step 8191x8193 (20 back to back)": lambda lib: [
+            call(lib, big, big_out, 1, w8, 0) for _ in range(20)],
+    }
+    out = {}
+    for case, run in cases.items():
+        results = []
+        for v in ("old", "new"):
+            run(libs[v])
+            results.append((traj.clone() if "frame" in case else
+                            walk_out.clone() if "walkers" in case else
+                            big_out.clone() if "single" in case
+                            else last.clone()))
+        torch.cuda.synchronize()
+        if not torch.equal(*results):
+            raise SystemExit(f"{variant}: {case} differs from the port's")
+        times = turns({v: (lambda v=v: run(libs[v])) for v in libs}, reps=5)
+        m = {v: float(np.mean(ts)) for v, ts in times.items()}
+        out[case] = dict(variant_ms=m["old"], port_ms=m["new"], runs=times)
+        print(f"stencil variant {variant.name} [{case}]: variant "
+              f"{m['old']:.4f} ms, port {m['new']:.4f} ms (runs {times}); "
+              "equal bit for bit", flush=True)
     return out
 
 
@@ -256,9 +631,7 @@ def pairwise_ab(libs, device):
             assert code == 0, f"old pairwise_forces: CUDA error {code}"
 
         new = lambda: pairwise_kernel.social_forces(pos, obs, cfg)
-        times = {"old": [], "new": []}
-        for v in ORDER:
-            times[v].append(cs.cuda_ms(old if v == "old" else new, reps=10))
+        times = turns({"old": old, "new": new}, reps=10)
         old()
         diff = float((new() - force).abs().max())
         m = {v: float(np.mean(ts)) for v, ts in times.items()}
@@ -272,16 +645,41 @@ def pairwise_ab(libs, device):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--old-csrc", type=Path, required=True)
+    ap.add_argument("--old-csrc", type=Path,
+                    help="commit 4f97d94's epidemicmodeling_torch/csrc")
+    ap.add_argument("--base-csrc", type=Path,
+                    help="commit 925b1be's epidemicmodeling_torch/csrc")
+    ap.add_argument("--stencil-variant", choices=sorted(STENCIL_VARIANTS),
+                    action="append", default=[], help="a stencil.cu variant "
+                    "to time against the port's (repeatable)")
+    ap.add_argument("--ekf3-variant", type=Path, action="append",
+                    default=[], help="an ekf3.cu variant to time against "
+                    "the port's (repeatable)")
     args = ap.parse_args()
+    if (args.old_csrc is None and args.base_csrc is None
+            and not args.stencil_variant and not args.ekf3_variant):
+        ap.error("give --old-csrc, --base-csrc, --stencil-variant or "
+                 "--ekf3-variant")
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: this timing needs one card")
     device = torch.device("cuda", 0)
+    old = (build_old(args.old_csrc, OLD_SIGNATURES, "4f97d94")
+           if args.old_csrc else None)
+    base = (build_old(args.base_csrc, BASE_SIGNATURES, "925b1be")
+            if args.base_csrc else None)
     cs.build_all()
-    libs = build_old(args.old_csrc)
-    res = {"ekf": ekf_ab(libs, device),
-           "pairwise": pairwise_ab(libs, device),
-           "old_ekf6_bwd_sass": dead_cov_check(args.old_csrc)}
+    res = {}
+    if base is not None:
+        res["ekf3"] = ekf3_ab(base, device)
+        res["stencil"] = stencil_ab(base, device)
+    for variant in args.ekf3_variant:
+        res[f"ekf3 variant {variant.name}"] = ekf3_variant_ab(variant, device)
+    for name in args.stencil_variant:
+        res[f"stencil variant {name}"] = stencil_variant_ab(name, device)
+    if old is not None:
+        res["ekf6"] = ekf6_ab(old, device)
+        res["pairwise"] = pairwise_ab(old, device)
+        res["old_ekf6_bwd_sass"] = dead_cov_check(args.old_csrc)
     print(json.dumps(res))
     print(cs.card_line())
 

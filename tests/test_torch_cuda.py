@@ -5,41 +5,49 @@ card. Every test here needs a CUDA device and skips without one (the marker
     python -m pytest --noconftest -o addopts="" -p no:cacheprovider \
         tests/test_torch_cuda.py -q
 
-B = 300 lanes is a multiple neither of ekf3's 128-thread block nor of
-ekf6's 32 lanes a block, so the ragged edge the kernels mask is exercised;
-ekf6 is also run at B = 1 and B = 45. Tolerances are those of the CPU tests
-(tests/test_ekf6_kernel.py:83-86,188-190): both sides run float32 in a
-different operation order, and roundoff compounds on the costates.
+B = 300 lanes is a multiple neither of ekf3's 24 lanes a block at T = 120
+(ekf3_geometry) nor of ekf6's 32 lanes a block, so the ragged edge the
+kernels mask is exercised; ekf6 is also run at B = 1 and B = 45.
+Tolerances are those of the CPU tests (tests/test_ekf6_kernel.py:83-86,
+188-190): both sides run float32 in a different operation order, and
+roundoff compounds on the costates.
 
-The spatial kernels: the stencil on ragged grids (not multiples of its
-32 x 8 block) in both schemes and both dtypes, at atol 3e-7 in float32 (the
-JAX package's bound, bench.py:448) and rtol 1e-12 in float64 (the kernel may
-fuse a multiply and an add); the pairwise forces at N = 300 (not a multiple
+The spatial kernels: the stencil on ragged grids in both schemes and both
+dtypes, at atol 3e-7 in float32 (the JAX package's bound, bench.py:448) and
+rtol 1e-12 in float64 (the kernel computes each cell in the plain version's
+order without fused multiply-adds, so it is expected to agree exactly); the
+multi-step stencil bit for bit against its own one-step loop, and its
+sparse injections and per-step weights against the plain version; the
+pairwise forces at N = 300 (not a multiple
 of 128) with and without obstacles, at atol 1e-5 * max|ref| (the CPU tests'
 bound, tests/test_spatial.py:153-154): the kernel sums in source order, the
 plain version in PyTorch's reduction order (a float32 sequential sum differs
 from the plain version by 3.3e-7 of the largest force at N = 300, CPU run).
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
 
-from epidemicmodeling_torch.ops.cuda import (ekf3_kernel, ekf6_kernel,
-                                             pairwise_kernel, stencil_kernel)
+from epidemicmodeling_torch.ops.cuda import (build, ekf3_kernel, ekf6_kernel,
+                                             pairwise_kernel, roofline_kernel,
+                                             stencil_kernel)
 from epidemicmodeling_torch.ops.cuda.ekf3_kernel import ekf3, ekf3_plain
 from epidemicmodeling_torch.ops.cuda.ekf6_kernel import ekf6, ekf6_plain
 from epidemicmodeling_torch.ops.cuda.pairwise_kernel import (
     social_forces, social_forces_plain)
-from epidemicmodeling_torch.ops.cuda.stencil_kernel import (stencil,
-                                                            stencil_plain)
+from epidemicmodeling_torch.ops.cuda.stencil_kernel import (
+    STEPS_PER_LAUNCH, stencil, stencil_plain, stencil_rollout,
+    stencil_rollout_plain)
 from epidemicmodeling_torch.spatial import (PopulationSimConfig,
                                             diffusion_rollout,
                                             population_motion_sim)
 from epidemicmodeling_torch.spatial.agents import default_environment
 from epidemicmodeling_torch.spatial.walkers import walking_sources_sim
 
-from chip_smoke import PAIRWISE_ROW_BOUND, law_rows, row_err
+from chip_smoke import EKF3_BOUNDS, PAIRWISE_ROW_BOUND, law_rows, row_err
 from tests._torch_helpers import (make_inputs, masked_err, packed_args,
                                   scaled_err)
 
@@ -241,20 +249,23 @@ def test_spatial_kernels_refuse_what_they_cannot_take(cuda):
 
 def test_spatial_entry_points_run_the_kernels(cuda):
     """The three spatial entry points on the card, without device=: on a
-    card by default, through the kernels, one launch per step; the agent
+    card by default, through the kernels, ceil(n / K) stencil launches a
+    rollout and one two-step launch a sim step; the agent
     sim against the same run on the CPU (float32 forces on both sides)."""
     C0 = np.zeros((64, 80))
     C0[30, 40] = 1.0
+    k = STEPS_PER_LAUNCH[torch.float32]
     stencil_kernel.launches = 0
     traj = diffusion_rollout(C0, 1e-1, 0.01, 0.1, 0.1, 25, neighborhood=8,
                              dtype=torch.float32)
-    assert traj.device.type == "cuda" and stencil_kernel.launches == 25
+    assert traj.device.type == "cuda"
+    assert stencil_kernel.launches == -(-25 // k)
     assert abs(float(traj[-1].sum()) - 1.0) < 1e-5
     stencil_kernel.launches = 0
     C, pos = walking_sources_sim(40, 40, 3, 30, 1e-2, 0.01, 0.1, 0.1, 1.0,
                                  torch.Generator(cuda).manual_seed(0))
     assert C.device.type == "cuda" and pos.shape == (30, 3, 2)
-    assert stencil_kernel.launches == 30
+    assert stencil_kernel.launches == -(-30 // k)
     assert float(C.sum()) <= 90.0 * (1 + 1e-5)
 
     N, T = 300, 20
@@ -269,7 +280,7 @@ def test_spatial_entry_points_run_the_kernels(cuda):
                   for _ in range(4))
     pairwise_kernel.launches = stencil_kernel.launches = 0
     got = population_motion_sim(cfg, T, device=cuda, noise=noise, **init)
-    assert pairwise_kernel.launches == T and stencil_kernel.launches == 2 * T
+    assert pairwise_kernel.launches == T and stencil_kernel.launches == T
     ref = population_motion_sim(cfg, T, device="cpu", noise=noise, **init)
     # float32 forces summed in two orders: a near pair's O(1e3) terms cancel
     # to an O(1) acceleration, ~6e-5 of roundoff per step carried through
@@ -279,3 +290,187 @@ def test_spatial_entry_points_run_the_kernels(cuda):
     for f in ("p", "v", "a", "C"):
         torch.testing.assert_close(getattr(got, f).cpu(), getattr(ref, f),
                                    rtol=0, atol=1e-4)
+
+
+# --------------------------------------------- the multi-step stencil kernel
+
+MULTI_N = {"1": lambda k: 1, "k-1": lambda k: k - 1, "k": lambda k: k,
+           "3k+1": lambda k: 3 * k + 1}
+
+
+@pytest.mark.parametrize("with_sources", [False, True])
+@pytest.mark.parametrize("n_case", list(MULTI_N))
+@pytest.mark.parametrize("shape", [(51, 51), (234, 167), (1000, 777),
+                                   (2048, 2048)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_stencil_multistep_equals_the_one_step_loop(cuda, dtype, shape,
+                                                    n_case, with_sources):
+    """n steps in ceil(n / K) launches equal n launches of the one-step
+    kernel bit for bit, every frame, both schemes, without and with dense
+    sources (added before each step, as the loop adds them with PyTorch);
+    and the plain version exactly (the same operations in the same order,
+    no fused multiply-adds)."""
+    k = STEPS_PER_LAUNCH[dtype]
+    n = MULTI_N[n_case](k)
+    g = torch.Generator(cuda).manual_seed(n + sum(shape))
+    C = torch.rand(shape, dtype=dtype, device=cuda, generator=g)
+    src = (1e-2 * torch.rand((n,) + shape, dtype=dtype, device=cuda,
+                             generator=g) if with_sources else None)
+    for axy in (0.0, AXY):
+        frames = torch.empty((n,) + shape, dtype=dtype, device=cuda)
+        before = stencil_kernel.launches
+        last = stencil_rollout(C, n, (AX, AY, axy), sources=src,
+                               frames=frames)
+        assert stencil_kernel.launches == before + -(-n // k)
+        assert last.data_ptr() == frames[-1].data_ptr()
+        final = stencil_rollout(C, n, (AX, AY, axy), sources=src)
+        cur, loop = C, []
+        for t in range(n):
+            cur = stencil(cur if src is None else cur + src[t], AX, AY, axy)
+            loop.append(cur)
+        plain = stencil_rollout_plain(C, n, (AX, AY, axy), sources=src)
+        torch.cuda.synchronize()
+        assert torch.equal(frames, torch.stack(loop))
+        assert torch.equal(final, cur)
+        assert torch.equal(final, plain)
+
+
+@pytest.mark.parametrize("shape", [(51, 51), (1000, 777)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_stencil_sparse_injections_match_plain(cuda, dtype, shape):
+    """70 injections a step over 3K + 1 steps, with duplicate cells (which
+    sum in walker order), cells on the boundary and switched-off ones (-1),
+    and injections on the first steps only, against the plain version on
+    the CPU, which adds in walker order too: at 1e-12 of the field's
+    largest value (expected exactly)."""
+    Lx, Ly = shape
+    k = STEPS_PER_LAUNCH[dtype]
+    n, W = 3 * k + 1, 70
+    rng = np.random.default_rng(Lx)
+    cells = rng.integers(0, Lx * Ly, (n, W))
+    cells[:, 5] = cells[:, 40] = cells[:, 3]
+    cells[0, :10] = 0
+    cells[1, 3] = -1
+    cells[2, :5] = Ly - 1
+    amounts = rng.random((n, W))
+    C = torch.rand(shape, dtype=dtype, device=cuda)
+    w = (AX, AY, AXY)
+    for steps in (n, k + 1):
+        c_t = torch.tensor(cells[:steps], dtype=torch.int32, device=cuda)
+        a_t = torch.tensor(amounts[:steps], dtype=dtype, device=cuda)
+        got = stencil_rollout(C, n, w, cells=c_t, amounts=a_t)
+        ref = stencil_rollout_plain(C.cpu(), n, w, cells=c_t.cpu(),
+                                    amounts=a_t.cpu())
+        scale = float(ref.abs().max())
+        assert float((got.cpu() - ref).abs().max()) <= 1e-12 * scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_stencil_two_step_launch_equals_two_single_steps(cuda, dtype):
+    """The agent sim's step: an injection of its marked agents, then a
+    4-neighbour and an 8-neighbour step, in one launch with per-step
+    weights, equal to the additions and two one-step launches bit for
+    bit."""
+    C = torch.rand((234, 167), dtype=dtype, device=cuda)
+    cells = torch.tensor([[500, 500, 167 * 100 + 3]], dtype=torch.int32,
+                         device=cuda)
+    amounts = torch.ones((1, 3), dtype=dtype, device=cuda)
+    before = stencil_kernel.launches
+    got = stencil_rollout(C, 2, [(AX, AY, 0.0), (AX, AY, AXY)], cells=cells,
+                          amounts=amounts)
+    assert stencil_kernel.launches == before + 1
+    x = C.clone()
+    x.view(-1)[500] += 1.0
+    x.view(-1)[500] += 1.0
+    x.view(-1)[167 * 100 + 3] += 1.0
+    ref = stencil(stencil(x, AX, AY, 0.0), AX, AY, AXY)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+
+def test_stencil_rollout_refuses_what_it_cannot_take(cuda):
+    C = torch.rand((30, 40), device=cuda)
+    w = (AX, AY, AXY)
+    with pytest.raises(ValueError, match="sources"):
+        stencil_rollout(C, 3, w, sources=torch.rand((2, 30, 40), device=cuda))
+    with pytest.raises(ValueError, match="cells"):
+        stencil_rollout(C, 3, w, cells=torch.zeros((1, 4), dtype=torch.int64,
+                                                   device=cuda),
+                        amounts=torch.ones((1, 4), device=cuda))
+    with pytest.raises(ValueError, match="amounts"):
+        stencil_rollout(C, 3, w, cells=torch.zeros((1, 4), dtype=torch.int32,
+                                                   device=cuda),
+                        amounts=torch.ones((1, 4), dtype=torch.float64,
+                                           device=cuda))
+    with pytest.raises(ValueError, match="frames"):
+        stencil_rollout(C, 3, w, frames=torch.empty((2, 30, 40), device=cuda))
+    big = torch.empty((4, 30, 40), device=cuda)
+    with pytest.raises(ValueError, match="overlap"):
+        stencil_rollout(big[1], 3, w, frames=big[1:])
+    # the field just before its frames is diffusion_rollout's layout
+    stencil_rollout(big[0], 3, w, frames=big[1:])
+    with pytest.raises(ValueError, match="weights"):
+        stencil_rollout(C, 3, [w, w])
+    with pytest.raises(ValueError, match="n_steps"):
+        stencil_rollout(C, 0, w)
+
+
+# -------------------------------------------------- ekf3 at the path's shapes
+
+@pytest.mark.parametrize("beta", [1.0, 0.9])
+@pytest.mark.parametrize("obs_type", ["NEWCASES", "TOTALCASES"])
+@pytest.mark.parametrize("T", [1, 440, 532])
+@pytest.mark.parametrize("B", [1, 31, 235, 1000])
+def test_ekf3_kernel_at_path_shapes(cuda, B, T, obs_type, beta):
+    """ekf3 at the train and scenario lengths (T = 440, 532) and T = 1, at
+    ragged B (at T = 440 and 532, B = 1000 keeps its step records in the
+    device-memory scratch, the others in shared memory), both observation
+    types, fixed and adaptive R: one launch a call, within chip_smoke's
+    EKF3_BOUNDS of the plain version."""
+    args = packed_args(3, make_inputs(3, B=B, T=T, T_hist=max(1, T - 92),
+                                      seed=B + T, obs_type=obs_type,
+                                      dtype=np.float32), cuda)
+    kw = dict(gamma_discount=0.995, obs_type=obs_type, beta=beta,
+              inv_monitor_len=21)
+    before = ekf3_kernel.launches
+    ssm, sp, sm = ekf3(*args, **kw)
+    torch.cuda.synchronize()
+    assert ekf3_kernel.launches == before + 1
+    r_ssm, r_sp, r_sm = ekf3_plain(*args, **kw)
+    assert all(bool(torch.isfinite(o).all()) for o in (ssm, sp, sm))
+    assert scaled_err(sp, r_sp) < EKF3_BOUNDS["s_plus"]
+    assert scaled_err(sm, r_sm) < EKF3_BOUNDS["s_plus"]
+    assert scaled_err(ssm, r_ssm) < EKF3_BOUNDS["s_smooth"]
+
+
+def test_ekf3_geometry_matches_the_library(cuda):
+    """ekf3_kernel.ekf3_geometry restates csrc/ekf3.cu's choice of lanes a
+    block: the two agree in every branch."""
+    lib = build.load("ekf3", ekf3_kernel._SIGNATURES)
+    fn = lib.ekf3_geometry
+    fn.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4
+    fn.restype = None
+    for T in (1, 7, 8, 440, 532, 3000, 4000):
+        for B in (1, 31, 235, 1000, 5875):
+            out = [ctypes.c_int(), ctypes.c_int(), ctypes.c_int(),
+                   ctypes.c_longlong()]
+            fn(T, B, *(ctypes.byref(o) for o in out))
+            g = ekf3_kernel.ekf3_geometry(T, B)
+            assert (out[0].value, out[1].value, bool(out[2].value),
+                    out[3].value) == (g.lanes, g.blocks, g.smem_hist,
+                                      g.smem_bytes)
+
+
+def test_roofline_kernels_match_plain(cuda):
+    x = torch.rand(1 << 20, device=cuda)
+    before = roofline_kernel.launches
+    assert torch.equal(roofline_kernel.copy_plus_one(x), x + 1)
+    got = roofline_kernel.fma_chain(x).double()
+    assert roofline_kernel.launches == before + 2
+    ref = roofline_kernel.fma_chain_plain(x).double()
+    assert float(((got - ref).abs() / ref.abs()).max()) <= (
+        roofline_kernel.DEPTH + 1) * 2.0 ** -24
+    with pytest.raises(ValueError, match="4k"):
+        roofline_kernel.copy_plus_one(x[:7])
+    with pytest.raises(ValueError, match="float32"):
+        roofline_kernel.fma_chain(x.double())

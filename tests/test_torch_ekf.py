@@ -167,3 +167,62 @@ def test_cpu_wrappers_refuse_bad_options():
         ekf3(*args, beta=0.9, inv_monitor_len=0)
     with pytest.raises(ValueError, match="observation type"):
         ekf3(*args, obs_type="DEATHS")
+
+
+def _tri(P):
+    """The lower triangle of a symmetric (3, 3, B) matrix, row by row, and
+    back: csrc/ekf3.cu's record keeps P+ and P- this way."""
+    return torch.stack([P[i, k] for i in range(3) for k in range(i + 1)])
+
+
+def _untri(v):
+    idx = {(i, k): i * (i + 1) // 2 + k for i in range(3) for k in range(i + 1)}
+    return torch.stack([torch.stack([v[idx[max(i, k), min(i, k)]]
+                                     for k in range(3)]) for i in range(3)])
+
+
+@pytest.mark.parametrize("T", [1, 2, 9, 40])
+@pytest.mark.parametrize("obs_type", ["NEWCASES", "TOTALCASES"])
+def test_ekf3_gain_pass_then_recursion_is_the_smoother(monkeypatch, obs_type,
+                                                       T):
+    """csrc/ekf3.cu's backward in plain PyTorch, float64: every smoother
+    gain J(t) formed first, from step t's record alone (S+, P+ of step t,
+    S- and P- of step t+1, the covariances as lower triangles), then the
+    recursion ss = margins(S+ + J (ss_next - S-)) from the terminal row.
+    The gains do not depend on the smoothed states, so this reproduces
+    ekf_smoother_bl's smoothed states bit for bit."""
+    from epidemicmodeling_torch.ops import ekf_bl
+    d = _torch(make_inputs(3, B=7, T=T, T_hist=max(1, T - 6), seed=T,
+                           obs_type=obs_type))
+    syms = []
+    real_sym = ekf_bl._sym
+
+    def keep(P):
+        out = real_sym(P)
+        syms.append(out)
+        return out
+    monkeypatch.setattr(ekf_bl, "_sym", keep)
+    sys3 = si_alpha_ekf_system_bl(obs_type)
+    res = ekf_smoother_bl(sys3, d["u"], d["x"], d["params"], d["s_init"],
+                          d["Ps_init"], d["s_final"], d["Ps_final"],
+                          Q=d["Q"], R=d["Rv"], gamma_discount=0.995)
+    # the forward's symmetrizations alternate P+ of step t and P- of t + 1
+    P_plus, P_minus_next = syms[0:2 * T:2], syms[1:2 * T:2]
+    records = [dict(sp=res.s_plus[t], smn=res.s_minus[t + 1],
+                    Pp=_tri(P_plus[t]), Pm=_tri(P_minus_next[t]))
+               for t in range(T - 1)]
+    for t, r in enumerate(records):        # the gain pass
+        A = sys3.state_jacobian(d["u"][t], r["sp"], d["params"], t)
+        PAt = ekf_bl._mmT(_untri(r["Pp"]), A, 3)
+        Lc = ekf_bl._chol_bl(_untri(r["Pm"]), 3,
+                             jitter=torch.finfo(torch.float64).tiny)
+        r["J"] = ekf_bl._chol_solve_mat_bl(Lc, PAt.transpose(0, 1),
+                                           3).transpose(0, 1)
+    ss = torch.where(torch.isnan(d["s_final"]), res.s_plus[-1], d["s_final"])
+    out = [ss]
+    for t in range(T - 2, -1, -1):         # the recursion
+        r = records[t]
+        ss = sys3.state_hard_margins(
+            r["sp"] + ekf_bl._mv(r["J"], ss - r["smn"], 3), d["params"], t)
+        out.insert(0, ss)
+    assert torch.equal(torch.stack(out), res.s_smooth)

@@ -21,7 +21,8 @@ import pytest
 import torch
 
 from chip_smoke import JAC_NNZ, PAIRWISE_ROW_BOUND, law_rows, row_err
-from epidemicmodeling_torch.ops.cuda import ekf6_kernel, pairwise_kernel
+from epidemicmodeling_torch.ops.cuda import (ekf3_kernel, ekf6_kernel,
+                                             pairwise_kernel)
 from epidemicmodeling_torch.ops.cuda.pairwise_kernel import (
     MAX_CHUNK, MIN_BLOCKS_PER_SM, SMS, pair_terms, pairwise_geometry)
 from epidemicmodeling_torch.spatial import PopulationSimConfig
@@ -234,3 +235,262 @@ def test_ekf6_jacobian_nonzeros_match_the_source():
     per_row = [sum(1 for i, _ in entries if int(i) == r) for r in range(6)]
     assert tuple(per_row) == JAC_NNZ
     assert sum(JAC_NNZ) == 21
+
+
+# ------------------------------------------------- the stencil (csrc/stencil.cu)
+
+STENCIL_DTYPES = (torch.float32, torch.float64)
+# the index expressions of csrc/stencil.cu that the checks below restate
+STENCIL_BLOCKING = (
+    "const int TX = ROWS - 2 * K, TY = NT - 2 * K;",
+    "const int gx0 = blockIdx.y * TX - K;",
+    "const int gy0 = blockIdx.x * TY - K;",
+    "const dim3 grid((Ly + TY - 1) / TY, (Lx + TX - 1) / TX);",
+    "const int lo = s + 1, hi = ROWS - s - 1;",
+    "if (col_in && c >= lo && c < NT - s - 1 && r0 < r1) {",
+    "const bool col_tile = c >= K && c < NT - K;",
+    "const int rt0 = K, nt = (a.keep || last) && col_tile ? ROWS - 2 * K : 0;",
+    "if ((unsigned)(r - rt0) < (unsigned)nt) *fp = v;",
+    "const int r0 = lo > -gx0 ? lo : -gx0;",
+    "const int r1 = hi < Lx - gx0 ? hi : Lx - gx0;",
+    "const int off_n = off_d + P + sh_n - sh;",
+    "const int s0 = j * KMAX, K = n - s0 < KMAX ? n - s0 : KMAX;",
+    "const int L = (n + KMAX - 1) / KMAX;")
+STENCIL_LOAD = (
+    "for (int i = threadIdx.x; i < ROWS * NQ; i += NT) {",
+    "const int r = i / NQ, q = i - r * NQ;",
+    "T* dst = buf0 + r * P + V * q;",
+    "const int gy = gy0 + V * q - shift(r);   // global column of dst[0]",
+    "auto shift = [&](int r) { return (sh0 + r * dly) & (V - 1); };",
+    "const int sh0 = (int)(first & (V - 1));",
+    "const int dly = Ly & (V - 1);")
+
+
+def _launch_geometry(Lx, Ly, dtype, K):
+    """csrc/stencil.cu's launch of K steps: (tile rows, tile columns, grid
+    (columns, rows)), the box of BOX_ROWS x THREADS cells less a halo of K
+    a side."""
+    from epidemicmodeling_torch.ops.cuda import stencil_kernel as sk
+    TX, TY = sk.BOX_ROWS[dtype] - 2 * K, sk.THREADS - 2 * K
+    return TX, TY, (-(-Ly // TY), -(-Lx // TX))
+
+
+def test_stencil_constants_match_the_source():
+    from epidemicmodeling_torch.ops.cuda import stencil_kernel as sk
+    assert _constant("stencil.cu", "NT") == sk.THREADS
+    for dt, tag in ((torch.float32, "F32"), (torch.float64, "F64")):
+        assert _constant("stencil.cu", f"ROWS_{tag}") == sk.BOX_ROWS[dt]
+        assert _constant("stencil.cu", f"KMAX_{tag}") == sk.STEPS_PER_LAUNCH[dt]
+        # the largest launch keeps a tile, and within KCAP weight slots
+        assert sk.BOX_ROWS[dt] - 2 * sk.STEPS_PER_LAUNCH[dt] >= 1
+        assert sk.STEPS_PER_LAUNCH[dt] <= _constant("stencil.cu", "KCAP")
+        # two buffers of ROWS + 1 rows (the box and the spare row the
+        # window's look-ahead may read) of NT + V cells: two blocks on an SM
+        # (each also takes its static weights and amounts and 1 KiB)
+        size = torch.finfo(dt).bits // 8
+        box = (sk.BOX_ROWS[dt] + 1) * (sk.THREADS + 16 // size) * size
+        static = (4 * 8 + 32) * size
+        assert 2 * (2 * box + static + 1024) <= SMEM_PER_SM
+    text = _source("stencil.cu")
+    assert all(line in text for line in STENCIL_BLOCKING + STENCIL_LOAD)
+
+
+@pytest.mark.parametrize("dtype", STENCIL_DTYPES)
+@pytest.mark.parametrize("shape", [(51, 51), (234, 167), (1000, 777),
+                                   (2048, 2048), (8191, 8193), (2, 9),
+                                   (9, 1), (3, 70)])
+def test_stencil_tiles_cover_every_cell_once_per_step(shape, dtype):
+    """For every launch size K <= KMAX: the tiles the blocks store partition
+    the field (rows and columns each exactly once), each block's box holds
+    its tile plus a halo of K cells a side, and each step computes only
+    from cells the step before computed (or the load brought), so the last
+    step's cells, the tile, depend on the box alone."""
+    from epidemicmodeling_torch.ops.cuda import stencil_kernel as sk
+    Lx, Ly = shape
+    ROWS, NT = sk.BOX_ROWS[dtype], sk.THREADS
+    for K in range(1, sk.STEPS_PER_LAUNCH[dtype] + 1):
+        TX, TY, (gx, gy) = _launch_geometry(Lx, Ly, dtype, K)
+        assert gx <= 2 ** 31 - 1 and gy <= 65535
+        for L, T_, box in ((Lx, TX, ROWS), (Ly, TY, NT)):
+            blocks = -(-L // T_)
+            cover = np.zeros(L, np.int64)
+            for k in range(blocks):
+                g0 = k * T_ - K                  # box index 0
+                tile = np.arange(g0 + K, g0 + box - K)   # stored box indices
+                assert len(tile) == T_
+                # the halo: the box reaches K cells past the tile each side
+                assert g0 <= tile[0] - K and g0 + box - 1 >= tile[-1] + K
+                cover[tile[(tile >= 0) & (tile < L)]] += 1
+            assert (cover == 1).all()
+        # the valid region shrinks one cell a step from the loaded box: step
+        # s computes box rows [s + 1, ROWS - s - 1) from rows [s, ROWS - s)
+        valid = (0, ROWS)
+        for s in range(K):
+            lo, hi = s + 1, ROWS - s - 1
+            assert valid[0] <= lo - 1 and hi + 1 <= valid[1]
+            # the look-ahead row r + 2 of the window stays within the
+            # buffer's ROWS + 1 rows
+            assert hi + 1 <= ROWS
+            valid = (lo, hi)
+        assert valid == (K, ROWS - K)
+        assert K <= sk.STEPS_PER_LAUNCH[dtype] <= (ROWS - 1) // 2
+
+
+@pytest.mark.parametrize("n", [1, 3, 4, 5, 8, 9, 25, 249, 500])
+def test_stencil_launches_split_the_steps(n):
+    """A rollout of n steps is ceil(n / KMAX) launches of KMAX steps, the
+    last one shorter, covering every step once and in order."""
+    from epidemicmodeling_torch.ops.cuda import stencil_kernel as sk
+    for dt in STENCIL_DTYPES:
+        kmax = sk.STEPS_PER_LAUNCH[dt]
+        L = (n + kmax - 1) // kmax
+        steps = []
+        for j in range(L):
+            s0 = j * kmax
+            K = min(kmax, n - s0)
+            assert 1 <= K <= kmax
+            steps += range(s0, s0 + K)
+        assert steps == list(range(n)) and L == -(-n // kmax)
+
+
+@pytest.mark.parametrize("dtype", STENCIL_DTYPES)
+@pytest.mark.parametrize("Ly", [1, 2, 5, 167, 777, 8193])
+def test_stencil_box_load_is_aligned_and_complete(Ly, dtype):
+    """The load puts box cell (r, c) at r * P + shift(r) + c, shift(r) being
+    the misalignment of the row's first global cell: every 16-byte copy is
+    aligned in device memory and in shared memory, each of the box's NT
+    columns is written exactly once a row, and nothing lands past the
+    row's pitch. Checked for field offsets 0..V-1 and blocks at the field's
+    left edge, inside it and past its right edge."""
+    from epidemicmodeling_torch.ops.cuda import stencil_kernel as sk
+    size = torch.finfo(dtype).bits // 8
+    V, NT, ROWS = 16 // size, sk.THREADS, sk.BOX_ROWS[dtype]
+    P, NQ = NT + V, NT // V + 1
+    for base in range(V):                 # the field's offset, in elements
+        for gx0, gy0 in ((-2, -3), (5, 17), (1, Ly - 7)):
+            first = base + gx0 * Ly + gy0
+            sh0, dly = first & (V - 1), Ly & (V - 1)
+            for r in range(ROWS):
+                sh = (sh0 + r * dly) & (V - 1)
+                assert sh == (base + (gx0 + r) * Ly + gy0) % V
+                seen = np.zeros(P, np.int64)
+                for q in range(NQ):
+                    gy = gy0 + V * q - sh           # global column of dst[0]
+                    dst = r * P + V * q
+                    assert (dst * size) % 16 == 0
+                    if 0 <= gy and gy + V <= Ly:    # a full vector
+                        assert (base + (gx0 + r) * Ly + gy) % V == 0
+                    seen[V * q:V * q + V] += 1
+                cols = np.arange(NT) + sh           # where columns 0..NT-1 sit
+                assert (seen[cols] == 1).all() and seen.sum() == NQ * V <= P
+
+
+# ------------------------------------------------------ ekf3 (csrc/ekf3.cu)
+
+EKF3_CHAIN = (
+    "const int b0 = blockIdx.x * LB;",
+    "const int nl = B - b0 < LB ? B - b0 : LB;   // live lanes of this block",
+    "const int b = b0 + l;",
+    "const bool chain = l < nl;                  // this thread runs lane b",
+    "for (int i = threadIdx.x; i < nl * (T - 1); i += THREADS) {",
+    "const int ll = i % nl, t = i / nl, bb = b0 + ll;",
+    "if (t % CHUNK == 0) {",
+    "if (t + CHUNK < T) prefetch(t / CHUNK + 1);",
+    "in_ring + ((t / CHUNK) % SLOTS * CHUNK + t % CHUNK) * NIN * LB + l;",
+    "if (t == nrows - 1 || t % CHUNK == CHUNK - 1) {",
+    "if (t >= CHUNK) prefetch_rows(t / CHUNK - 1);",
+    "if (!SMEM_HIST && nrows > 0) prefetch_rows((nrows - 1) / CHUNK);",
+    "row = rec_ring + ((t / CHUNK) % SLOTS * CHUNK + t % CHUNK) * RREC * LB + l;",
+    "size_t fit = SMEM_LIMIT / (4 * (ring + (size_t)T * REC));",
+    "g.smem_hist = fit >= 1 && (B + (int)fit - 1) / (int)fit <= SMS;",
+    "g.lanes = g.smem_hist ? (int)fit : MAX_LANES;")
+
+
+def test_ekf3_constants_match_the_source():
+    from epidemicmodeling_torch.ops.cuda import ekf3_kernel as ek
+    for name in ("THREADS", "MAX_LANES", "SMS", "SMEM_LIMIT", "CHUNK",
+                 "SLOTS", "RREC"):
+        assert _constant("ekf3.cu", name) == getattr(ek, name), name
+    assert _constant("ekf3.cu", "NIN") == "NPI + 2"
+    assert ek.NIN == ek.NPI + 2
+    text = _source("ekf3.cu")
+    assert "E_J = 6, REC = 18 };" in text and ek.REC == 18
+    # the recursion's RREC floats (S+, S-, J) lead the record
+    assert "enum { E_SP = 0, E_SMN = 3, E_PP = 6, E_PM = 12," in text
+    assert ek.RREC == 3 + 3 + 9
+    assert all(line in text for line in EKF3_CHAIN)
+    assert ek.MAX_LANES <= 32 <= ek.THREADS      # the lanes are warp 0
+
+
+@pytest.mark.parametrize("T", [1, 7, 8, 9, 440, 532, 3000, 4000])
+@pytest.mark.parametrize("B", [1, 31, 235, 1000, 5875])
+def test_ekf3_layout_covers_every_lane_once(T, B):
+    """ekf3_geometry (the kernel's choice): every lane runs on exactly one
+    thread of warp 0 of one block, each block's (lane, step) gain items are
+    each taken once by its THREADS threads, and the shared memory fits."""
+    from epidemicmodeling_torch.ops.cuda import ekf3_kernel as ek
+    g = ek.ekf3_geometry(T, B)
+    assert 1 <= g.lanes <= ek.MAX_LANES and g.blocks == -(-B // g.lanes)
+    lanes = np.concatenate([k * g.lanes + np.arange(min(g.lanes,
+                                                        B - k * g.lanes))
+                            for k in range(g.blocks)])
+    assert np.array_equal(lanes, np.arange(B))
+    assert (lanes % g.lanes < 32).all()
+    assert g.smem_bytes <= ek.SMEM_LIMIT
+    if g.smem_hist:
+        assert g.blocks <= ek.SMS and g.hist_floats == 0
+        assert g.smem_bytes == 4 * g.lanes * (
+            ek.SLOTS * ek.CHUNK * ek.NIN + T * ek.REC)
+    else:
+        assert g.lanes == ek.MAX_LANES and g.hist_floats == T * ek.REC * B
+    nl = min(g.lanes, B)
+    items = [(i % nl, i // nl) for t0 in range(ek.THREADS)
+             for i in range(t0, nl * (T - 1), ek.THREADS)]
+    assert sorted(items) == [(lane, t) for lane in range(nl)
+                             for t in range(T - 1)]
+
+
+def _ring_schedule(T, chunk, slots, forward):
+    """Emulate an ekf3 ring: the forward input ring (steps 0 .. T-1, chunk
+    0 requested first, at each chunk's first step a wait for everything
+    requested and the next chunk requested) or the backward record ring
+    (rows T-2 .. 0, the last chunk requested first, at each chunk's first
+    row going down a wait and the chunk below requested). Returns nothing;
+    asserts that a step reads a slot holding its chunk, landed, and that no
+    chunk is written over one with steps still to read."""
+    rows = T if forward else T - 1
+    if rows <= 0:
+        return
+    n_chunks = -(-rows // chunk)
+    slot = {}                         # slot -> (chunk, landed)
+    read = set()
+    def request(c):
+        s = c % slots
+        if s in slot:
+            old = slot[s][0]
+            span = range(old * chunk, min(rows, (old + 1) * chunk))
+            assert all(t in read for t in span), "overwrote unread steps"
+        slot[s] = (c, False)
+    order = range(rows) if forward else range(rows - 1, -1, -1)
+    request(0 if forward else n_chunks - 1)
+    for t in order:
+        c = t // chunk
+        if forward and t % chunk == 0:
+            slot = {k: (v[0], True) for k, v in slot.items()}
+            if t + chunk < T:
+                request(c + 1)
+        if not forward and (t == rows - 1 or t % chunk == chunk - 1):
+            slot = {k: (v[0], True) for k, v in slot.items()}
+            if t >= chunk:
+                request(c - 1)
+        assert slot[c % slots] == (c, True), f"step {t} not in place"
+        read.add(t)
+    assert read == set(range(rows))
+
+
+@pytest.mark.parametrize("T", [1, 2, ekf3_kernel.CHUNK - 1, ekf3_kernel.CHUNK,
+                               ekf3_kernel.CHUNK + 1, 2 * ekf3_kernel.CHUNK,
+                               2 * ekf3_kernel.CHUNK + 1, 440, 532])
+def test_ekf3_rings_never_overwrite_unread_chunks(T):
+    for forward in (True, False):
+        _ring_schedule(T, ekf3_kernel.CHUNK, ekf3_kernel.SLOTS, forward)

@@ -37,8 +37,9 @@ from epidemicmodeling_tpu.spatial.walkers import \
 
 from epidemicmodeling_torch.ops.cuda.pairwise_kernel import (
     social_forces, social_forces_plain)
-from epidemicmodeling_torch.ops.cuda.stencil_kernel import (stencil,
-                                                            stencil_plain)
+from epidemicmodeling_torch.ops.cuda.stencil_kernel import (
+    STEPS_PER_LAUNCH, stencil, stencil_plain, stencil_rollout,
+    stencil_rollout_plain)
 from epidemicmodeling_torch.spatial import (PopulationSimConfig, cfl_check,
                                             diffusion_rollout,
                                             diffusion_step_4,
@@ -47,7 +48,8 @@ from epidemicmodeling_torch.spatial import (PopulationSimConfig, cfl_check,
 from epidemicmodeling_torch.spatial.agents import (_crossed_obstacle,
                                                    _social_forces,
                                                    default_environment)
-from epidemicmodeling_torch.spatial.walkers import walking_sources_sim
+from epidemicmodeling_torch.spatial.walkers import (clamped_walk,
+                                                    walking_sources_sim)
 
 from tests.test_spatial import make_init
 from tests.test_spatial_fuzz import oracle_crossed, oracle_social_forces
@@ -208,6 +210,112 @@ def test_walking_sources_draws_follow_the_law():
     assert (np.abs(np.diff(t, axis=0)) <= 1).all()
     # 240 units injected; the frozen boundary only takes mass away
     assert 200.0 < float(C.sum()) <= 240.0 + 1e-9
+
+
+# ---------------------------------------------------- the multi-step path
+
+# step counts that are not multiples of the kernel's steps a launch
+# (STEPS_PER_LAUNCH: 8 in float32, 4 in float64), grids with Lx or Ly < 3
+ROLLOUT_CASES = [((51, 51), 7), ((23, 19), 9), ((40, 31), 25), ((2, 9), 5),
+                 ((9, 1), 3), ((3, 70), 13)]
+
+
+@pytest.mark.parametrize("with_sources", [False, True])
+@pytest.mark.parametrize("nb", [4, 8])
+@pytest.mark.parametrize("shape,n", ROLLOUT_CASES)
+def test_stencil_rollout_plain_matches_jax(shape, n, nb, with_sources):
+    """The multi-step path on the CPU (stencil_rollout's plain version, and
+    diffusion_rollout through it) against the JAX package's
+    diffusion_rollout, float64, rtol 1e-12: sources are added before each
+    step, the boundary keeps C + src."""
+    assert all(n % k for k in STEPS_PER_LAUNCH.values())
+    rng = np.random.default_rng(n + sum(shape))
+    C0 = rng.random(shape)
+    sources = rng.random((n,) + shape) * 1e-2 if with_sources else None
+    ref = np.asarray(jax_diffusion.diffusion_rollout(
+        C0, D, DT, DX, DY, n, neighborhood=nb, sources=sources))
+    got = diffusion_rollout(C0, D, DT, DX, DY, n, neighborhood=nb,
+                            sources=sources, device="cpu")
+    np.testing.assert_allclose(got.numpy(), ref, **F64)
+    w = (AX, AY, AXY if nb == 8 else 0.0)
+    src = None if sources is None else _t(sources)
+    frames = torch.empty((n,) + shape, dtype=torch.float64)
+    last = stencil_rollout(_t(C0), n, w, sources=src, frames=frames)
+    assert last.data_ptr() == frames[-1].data_ptr()
+    np.testing.assert_allclose(frames.numpy(), ref[1:], **F64)
+    np.testing.assert_array_equal(
+        stencil_rollout_plain(_t(C0), n, [w] * n, sources=src).numpy(),
+        frames[-1].numpy())
+
+
+def test_stencil_rollout_per_step_weights():
+    """Per-step weights: the agent sim's 4-neighbour step then 8-neighbour
+    step, with an injection before the first only, equal JAX's two steps
+    after C.at[].add; a list of the wrong length raises."""
+    rng = np.random.default_rng(2)
+    C0 = rng.random((23, 19))
+    cells = torch.tensor([[5 * 19 + 7, 5 * 19 + 7, 0]], dtype=torch.int32)
+    amounts = torch.tensor([[0.5, 0.25, 1.0]], dtype=torch.float64)
+    got = stencil_rollout(_t(C0), 2, [(AX, AY, 0.0), (AX, AY, AXY)],
+                          cells=cells, amounts=amounts)
+    Cj = jnp.asarray(C0).at[5, 7].add(0.5).at[5, 7].add(0.25).at[0, 0].add(
+        1.0)
+    ref = jax_diffusion.diffusion_step_8(
+        jax_diffusion.diffusion_step_4(Cj, D, DT, DX, DY), D, DT, DX, DY)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **F64)
+    with pytest.raises(ValueError, match="weights"):
+        stencil_rollout(_t(C0), 3, [(AX, AY, 0.0)] * 2)
+
+
+def _jax_walks(key, Lx, Ly, W, NT):
+    """The start cells and steps of JAX's walkers for ``key``."""
+    k_init, k_run = jax.random.split(key)
+    start = np.stack([
+        np.asarray(jax.random.randint(k_init, (W,), 1, Lx - 1)),
+        np.asarray(jax.random.randint(jax.random.fold_in(k_init, 1), (W,),
+                                      1, Ly - 1))], axis=1)
+    steps = np.stack([np.asarray(jax.random.randint(k, (W, 2), -1, 2))
+                      for k in jax.random.split(k_run, NT)])
+    return start, steps
+
+
+@pytest.mark.parametrize("nb", [4, 8])
+def test_walking_sources_with_duplicate_cells_match_jax(nb):
+    """Twelve walkers on a 5 x 4 interior share cells on most steps, so
+    duplicates sum; 21 steps, not a multiple of the kernel's steps a
+    launch. float64, rtol 1e-12, fields included."""
+    key = jax.random.PRNGKey(11)
+    Lx, Ly, W, NT = 7, 6, 12, 21
+    start, steps = _jax_walks(key, Lx, Ly, W, NT)
+    C_j, traj_j, fields_j = jax_walkers(
+        Lx, Ly, W, NT, 1e-1, 0.01, 0.1, 0.1, 0.7, key, neighborhood=nb,
+        return_fields=True)
+    pos = np.concatenate([start[None], np.asarray(traj_j)[:-1]])
+    flat = pos[..., 0] * Ly + pos[..., 1]
+    dup_steps = sum(len(np.unique(f)) < W for f in flat)
+    assert dup_steps >= NT // 2
+    C, traj, fields = walking_sources_sim(
+        Lx, Ly, W, NT, 1e-1, 0.01, 0.1, 0.1, 0.7, neighborhood=nb,
+        return_fields=True, start=start, steps=steps, device="cpu",
+        dtype=torch.float64)
+    np.testing.assert_array_equal(traj.numpy(), np.asarray(traj_j))
+    np.testing.assert_allclose(fields.numpy(), np.asarray(fields_j), **F64)
+    np.testing.assert_allclose(C.numpy(), np.asarray(C_j), **F64)
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 8, 33, 500])
+def test_clamped_walk_matches_the_step_loop(n):
+    """The walk's doubling scan equals the step-by-step clamp exactly,
+    with moves large enough to hit both walls often."""
+    g = torch.Generator().manual_seed(n)
+    start = torch.randint(1, 9, (17, 2), generator=g)
+    steps = torch.randint(-4, 5, (n, 17, 2), generator=g)
+    lo, hi = torch.tensor([1, 2]), torch.tensor([8, 5])
+    x, ref = start, []
+    for t in range(n):
+        x = torch.clamp(x + steps[t], lo, hi)
+        ref.append(x)
+    assert torch.equal(clamped_walk(start, steps, lo, hi), torch.stack(ref))
 
 
 # ------------------------------------------------------------- agents
