@@ -53,13 +53,31 @@ CUDA toolkit (nvcc). In order, it:
 9. runs the card's roofline anchors (csrc/roofline.cu, the counterpart of
    bench.py's Pallas microkernels): a 1 GB device-memory copy and a
    512-deep FMA chain, held against their plain versions, and prints the
-   copy rate beside the 3.35 TB/s that bound() assumes.
+   copy rate beside the 3.35 TB/s that bound() assumes;
+10. drives the XPRIZE product's own CLI (xprize_cli.main, on the card,
+   --backend pallas) on XPRIZE-size CSVs written by the port's pandas-free
+   synthetic frame (235 regions x 532 days): 250 epsilons in chunks of 25,
+   500 Monte-Carlo schedules, a checkpoint and a summary, cold then warm
+   (the warm run's launches counted and its wall split into reading the
+   CSVs, run_pipeline and writing the CSVs); checks the prescriptions (10 x
+   235 x 92 rows of integer levels in [0, max]) and the predictions (finite,
+   >= 0); reruns from the checkpoint (--load-params: the same prescriptions
+   file, byte for byte) and with a future-IP plan (the predictions move);
+11. runs the forecast-quality backtest at the paper's scale (235 regions x
+   60 holdout starts x 60-day look-ahead at T = 440), cold then warm:
+   exactly three ekf3 launches (two training rounds at T = 380, B = 235,
+   then one at T = 440, B = 14,100, its step records in the device
+   scratch), that launch's outputs held against ekf3's plain version at
+   EKF3_BOUNDS with both timed, and the error curves finite where the truth
+   is positive; prints the warm wall and the filter-days/s.
 
 Every failed check raises, so the exit code is non-zero. Only when all
 phases pass does it print the kernel JSON line, the card's name and power
 limit, and, last, {"ok": true, "device": {...}}. The kernel line also
-gives ekf6's time on the per-capita input with active control and
-pairwise's at N = 100,000, both measured in the same run.
+gives ekf6's time on the per-capita input with active control,
+pairwise's at N = 100,000, ekf3's at the backtest's (T = 440, B = 14,100)
+and each EKS kernel's launches on the CLI's and the backtest's warm runs,
+all measured in the same run.
 """
 
 from __future__ import annotations
@@ -67,22 +85,33 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import shutil
 import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from epidemicmodeling_torch.control import epsilon_grid, random_npi_schedules
 from epidemicmodeling_torch.data import (NPI_MAXES_DEFAULT,
+                                         OXFORD_NPI_COLUMNS,
                                          build_region_batch,
-                                         preprocess_region, synthetic_regions)
+                                         preprocess_region,
+                                         synthetic_oxford_frame,
+                                         synthetic_regions, write_oxford_csvs)
+from epidemicmodeling_torch.data.csvio import (parse_floats,
+                                               read_csv_columns,
+                                               write_csv_columns)
 from epidemicmodeling_torch.ops.cuda import (build, ekf3_kernel, ekf6_kernel,
                                              pairwise_kernel, roofline_kernel,
                                              stencil_kernel)
-from epidemicmodeling_torch.pipelines import (PipelineConfig, run_pipeline,
-                                              trained_params_from_numpy)
+from epidemicmodeling_torch.pipelines import (PipelineConfig,
+                                              forecast_quality_assessment,
+                                              run_pipeline,
+                                              trained_params_from_numpy,
+                                              xprize_cli)
 from epidemicmodeling_torch.pipelines.core import (
     device_batch, ekf3_lane_inputs, pareto_prep, region_init, stage_params,
     sweep_lane_inputs, to_tensor, train_regions)
@@ -92,6 +121,7 @@ from epidemicmodeling_torch.spatial import (PopulationSimConfig,
                                             population_motion_sim)
 from epidemicmodeling_torch.spatial.agents import default_environment
 from epidemicmodeling_torch.spatial.walkers import walking_sources_sim
+from epidemicmodeling_torch.utils.dates import date_range_days
 from tests._torch_helpers import (make_inputs, masked_err, packed_args,
                                   scaled_err)
 
@@ -219,6 +249,12 @@ SIM_N, SIM_STEPS = 20_000, 200
 SIM_FRAMES = (0, 100, 199)
 SIM_PATH = f"population_motion_sim (N={SIM_N}, {SIM_STEPS} steps, warm)"
 BIG_N, BIG_ROWS = 100_000, 2048
+# the CLI phase: files under the checkout's git-ignored build directory
+CLI_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_cli"
+CLI_START = "2020-03-01"
+N_PRESCRIPTIONS = 10
+# the backtest phase: bench.py's backtest leg (bench.py:768-800)
+BT_STARTS, BT_AHEAD = 60, 60
 
 
 def log(msg: str) -> None:
@@ -1034,8 +1070,172 @@ def roofline_phase(device):
     return rate, flops
 
 
+def cli_phase(device):
+    """The XPRIZE CLI on the card at the XPRIZE size, from CSV files the
+    port's synthetic frame writes: cold then warm (launches of the warm run
+    counted, its wall split as the summary records it), then from the warm
+    run's checkpoint, then with a future-IP plan. Returns the warm launch
+    counts and wall split."""
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    CLI_DIR.mkdir(parents=True)
+    t0 = time.perf_counter()
+    frame, pops, _ = synthetic_oxford_frame(R_REGIONS, T_HIST + HORIZON,
+                                            CLI_START, seed=0)
+    files = write_oxford_csvs(CLI_DIR, frame, pops)
+    days = date_range_days(CLI_START, T_HIST + HORIZON)
+    presc_start = days[T_HIST]
+    # the plan: every NPI at its maximum over the whole horizon
+    write_csv_columns(CLI_DIR / "future_ip.csv", dict(
+        CountryName=pops["CountryName"], RegionName=pops["RegionName"],
+        Date=[presc_start] * R_REGIONS,
+        **{c: [float(m)] * R_REGIONS
+           for c, m in zip(OXFORD_NPI_COLUMNS, NPI_MAXES_DEFAULT)}))
+    log(f"cli: wrote the XPRIZE-size CSVs ({R_REGIONS} regions x "
+        f"{T_HIST + HORIZON} days, "
+        f"{Path(files['data']).stat().st_size / 2**20:.1f} MiB) in "
+        f"{time.perf_counter() - t0:.3f}s")
+
+    def run(tag, *extra):
+        out = {k: str(CLI_DIR / f"{k}_{tag}.{ext}") for k, ext in
+               (("presc", "csv"), ("pred", "csv"), ("summary", "json"))}
+        argv = ["--data", files["data"], "--geos", files["geos"],
+                "--populations", files["populations"],
+                "--start-train", CLI_START, "--end-train", days[T_HIST - 1],
+                "--end-predict", days[-1], "--backend", "pallas",
+                "--num-epsilon", str(N_EPS), "--pareto-chunk", str(CHUNK),
+                "--num-monte-carlo", str(N_MC),
+                "--num-prescriptions", str(N_PRESCRIPTIONS),
+                "--prescriptions-out", out["presc"],
+                "--predictions-out", out["pred"],
+                "--summary-out", out["summary"], *extra]
+        reset_launches()
+        t0 = time.perf_counter()
+        check(xprize_cli.main(argv) == 0, f"cli {tag}: exit code")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = read_launches()
+        summary = json.loads(Path(out["summary"]).read_text())
+        split = " ".join(f"{k}={v:.3f}s" for k, v in
+                         summary["wall_seconds"].items())
+        log(f"cli {tag}: wall={wall:.3f}s {split} launches={n}")
+        return out, summary, wall, n
+
+    ckpt = str(CLI_DIR / "trained.npz")
+    run("cold", "--trained-params-out", ckpt)
+    out, summary, wall, launches = run("warm", "--trained-params-out", ckpt)
+    cols = read_csv_columns(out["presc"])
+    levels = np.stack([parse_floats(cols[c], c) for c in OXFORD_NPI_COLUMNS],
+                      axis=1)
+    check(levels.shape == (N_PRESCRIPTIONS * R_REGIONS * HORIZON, 12),
+          f"cli: {levels.shape[0]} prescription rows, expected "
+          f"{N_PRESCRIPTIONS} x {R_REGIONS} x {HORIZON}")
+    check(bool((levels == np.round(levels)).all() and (levels >= 0).all()
+               and (levels <= NPI_MAXES_DEFAULT).all()),
+          "cli: a prescribed level is not an integer in [0, max]")
+    check(cols["Date"][0] == presc_start, "cli: prescriptions' first day")
+    pred = parse_floats(read_csv_columns(out["pred"])[
+        "PredictedDailyNewCases"])
+    check(pred.shape == (R_REGIONS * HORIZON,)
+          and bool(np.isfinite(pred).all() and (pred >= 0).all()),
+          "cli: predictions not finite and >= 0")
+    check(launches["ekf3"] >= 4 and launches["ekf6"] == N_EPS // CHUNK,
+          f"cli: launches {launches}")
+    check(summary["pareto_front_sizes"] and min(
+        summary["pareto_front_sizes"]) >= 1, "cli: an empty Pareto front")
+    loaded, _, _, _ = run("load_params", "--load-params", ckpt)
+    read = lambda f: Path(f).read_bytes()
+    check(read(loaded["presc"]) == read(out["presc"]), "cli: --load-params rerun wrote other prescriptions")
+    planned, _, _, _ = run("future_ip", "--future-ip",
+                           str(CLI_DIR / "future_ip.csv"))
+    pred_ip = parse_floats(read_csv_columns(planned["pred"])[
+        "PredictedDailyNewCases"])
+    check(bool(np.isfinite(pred_ip).all() and (pred_ip >= 0).all()),
+          "cli: future-IP predictions not finite and >= 0")
+    moved = float(np.mean(pred_ip != pred))
+    log(f"cli future_ip: every NPI at its maximum: total predicted cases "
+        f"{pred_ip.sum():.6e} against {pred.sum():.6e} on the frozen NPIs; "
+        f"{moved:.4f} of the cells moved")
+    check(moved > 0.5 and pred_ip.sum() < pred.sum(),
+          "cli: the future-IP plan did not condition the predictions")
+    return launches, dict(summary["wall_seconds"], total=wall)
+
+
+def backtest_phase(device, bt):
+    """forecast_quality_assessment on the card at 235 regions x 60 starts x
+    60-day look-ahead, T = 440, cold then warm: three ekf3 launches, the
+    last over all B = 14,100 (region, start) lanes; that launch's own
+    arguments held against the plain version and both timed; the error
+    curves checked. Returns (the measurement dict of compare_kernel plus
+    the launches, the warm wall)."""
+    cfg = PipelineConfig(backend="pallas", smoother_gain="solve")
+    T = bt.observations.shape[1]
+    calls = []
+    real = ekf3_kernel.ekf3
+
+    def spy(*args, **kw):
+        calls.append((args, kw))
+        return real(*args, **kw)
+
+    ekf3_kernel.ekf3 = spy
+    try:
+        for tag in ("cold", "warm"):
+            calls.clear()
+            reset_launches()
+            t0 = time.perf_counter()
+            res = forecast_quality_assessment(
+                bt, MINS, NPI_MAXES_DEFAULT, T - BT_STARTS, BT_STARTS,
+                BT_AHEAD, cfg, dtype=F32)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            n = read_launches()
+            log(f"backtest {tag}: {R_REGIONS} regions x {BT_STARTS} starts x "
+                f"{BT_AHEAD} days ahead, T={T}: wall={wall:.3f}s "
+                f"filter-days/s={R_REGIONS * BT_STARTS * T / wall:.4e} "
+                f"launches={n}")
+    finally:
+        ekf3_kernel.ekf3 = real
+    shapes = [tuple(a[0].shape) for a, _ in calls]
+    check(n["ekf3"] == 3 and len(calls) == 3,
+          f"backtest: {n['ekf3']} ekf3 launches, expected 3")
+    B = R_REGIONS * BT_STARTS
+    check(shapes == [(T - BT_STARTS, 12, R_REGIONS)] * 2 + [(T, 12, B)],
+          f"backtest: ekf3 shapes {shapes}")
+    check(not ekf3_kernel.ekf3_geometry(T, B).smem_hist,
+          "backtest: expected the device-scratch path at B = 14,100")
+    m = compare_kernel("ekf3", "backtest", calls[-1][0], device, EKF3_BOUNDS,
+                       True)
+    m["launches"] = n["ekf3"]
+    # the error curves: finite per-day errors where the truth is positive,
+    # and every aggregate finite where one of its start days is
+    pop = to_tensor(bt.population, F32, device)
+    truth = to_tensor(bt.new_cases_norm, F32, device) * pop[:, None]
+    starts = torch.arange(1, BT_STARTS + 1, device=device)
+    days = T - starts[:, None] + torch.arange(BT_AHEAD, device=device)
+    valid = days < T
+    pos = (truth[:, days.clamp(0, T - 1)] > 0) & valid
+    e = res.est_error_smooth
+    check(tuple(e.shape) == (R_REGIONS, BT_STARTS, BT_AHEAD)
+          and e.device == device, f"backtest: errors {tuple(e.shape)}")
+    check(bool(torch.isfinite(e[pos]).all() and (e[pos] >= 0).all()),
+          "backtest: a per-day error is not finite where the truth > 0")
+    agg = pos[:, BT_AHEAD - 1:].any(dim=1)
+    for name in ("mean_error_smooth", "median_error_smooth"):
+        v = getattr(res, name)
+        check(bool(torch.isfinite(v[agg]).all()),
+              f"backtest: {name} not finite where the truth > 0")
+    med = res.median_error_smooth
+    log(f"backtest: median over regions (a region's NaN left out) of the "
+        f"median smoothed error (%) at look-ahead 1 / {BT_AHEAD // 2} / "
+        f"{BT_AHEAD} days: "
+        + " / ".join(f"{float(med[:, h].nanmedian()):.3f}"
+                     for h in (0, BT_AHEAD // 2 - 1, BT_AHEAD - 1))
+        + f"; positive-truth share "
+        f"{float(pos[valid.expand_as(pos)].double().mean()):.4f}")
+    return m, wall
+
+
 def kernel_entries(measured, xprize_launches, stencil_cases, sim_launches,
-                   pairwise_cases):
+                   pairwise_cases, cli_launches, backtest):
     """One entry per kernel for the JSON line: its launches on its path's
     warm run, its largest error against the plain version, and kernel,
     plain-version, bound and library times at its largest timed shape
@@ -1051,11 +1251,23 @@ def kernel_entries(measured, xprize_launches, stencil_cases, sim_launches,
             bound_by=b_by, library_ms=None, launches=xprize_launches[name],
             path="run_pipeline (XPRIZE size, warm)",
             shape=f"T={big['T']} B={big['B']} ({big['tag']})"))
+        kernels[-1]["cli_launches"] = cli_launches[name]
         if name == "ekf6":
             active = next(m for m in measured[name]
                           if m["tag"] == "per-capita, control active")
             kernels[-1].update(active_ms=active["ms"],
                                active_plain_ms=active["plain_ms"])
+        else:
+            bt_bound, bt_by = ekf_bound(name, backtest["T"], backtest["B"])
+            kernels[-1].update(
+                max_abs_err=max(kernels[-1]["max_abs_err"],
+                                backtest["abs_err"]),
+                backtest_launches=backtest["launches"],
+                backtest_ms=backtest["ms"],
+                backtest_plain_ms=backtest["plain_ms"],
+                backtest_bound_ms=bt_bound, backtest_bound_by=bt_by,
+                backtest_max_abs_err=backtest["abs_err"],
+                backtest_shape=f"T={backtest['T']} B={backtest['B']}")
     big = [m for m in stencil_cases
            if m.get("ms") is not None and m["eight"]][-1]
     kernels.append(dict(
@@ -1134,8 +1346,13 @@ def main():
     pairwise_cases = pairwise_phase(device, sim.p)
     roofline_phase(device)
 
+    # the XPRIZE product's own entry point and the backtest (slice 3)
+    cli_launches, _ = cli_phase(device)
+    backtest, _ = backtest_phase(device, bt)
+
     kernels = kernel_entries(measured, xprize_launches, stencil_cases,
-                             sim_launches, pairwise_cases)
+                             sim_launches, pairwise_cases, cli_launches,
+                             backtest)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

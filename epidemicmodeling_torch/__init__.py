@@ -4,25 +4,32 @@ The JAX package beside it is the reference: the tests run both on the same
 inputs and hold each module of the port against its counterpart. Module
 names mirror the JAX package's, so each counterpart is easy to find.
 
-Two slices are ported. The XPRIZE train -> predict -> prescribe path
-(pipelines.run_pipeline) runs on the batch-last backends with the two
-EKF/EKS kernels; the spatial stack (spatial.diffusion_rollout,
-spatial.walkers.walking_sources_sim, spatial.population_motion_sim) runs
-with the diffusion-stencil and pairwise-force kernels. All four kernels are
-written by hand in CUDA C++ for Hopper (csrc/, ops/cuda/). The entry points
-run on the CUDA card unless the caller passes CPU tensors or device="cpu";
-for CPU tensors each kernel wrapper runs its plain PyTorch version.
+Three slices are ported. The XPRIZE product runs from its own entry
+points: the CLI (python -m epidemicmodeling_torch.pipelines.xprize_cli) and
+pipelines.train_predict_prescribe read the OxCGRT CSVs without pandas and
+run pipelines.run_pipeline on the batch-last backends with the two EKF/EKS
+kernels, writing the XPRIZE prescriptions and predictions CSVs and .npz or
+.mat checkpoints; pipelines.forecast_quality_assessment, the paper's
+backtest, runs every (region, holdout start) filter in one ekf3 call. The
+spatial stack (spatial.diffusion_rollout, spatial.walkers.walking_sources_sim,
+spatial.population_motion_sim) runs with the diffusion-stencil and
+pairwise-force kernels. All four kernels are written by hand in CUDA C++ for
+Hopper (csrc/, ops/cuda/). The entry points run on the CUDA card unless the
+caller passes CPU tensors or device="cpu"; for CPU tensors each kernel
+wrapper runs its plain PyTorch version.
 
 Subpackages
 -----------
-pipelines    config, batched stages, run_pipeline, parameter carry-over
+pipelines    config, batched stages, run_pipeline, the CSV entry point and
+             CLI, checkpoint files, the forecast-quality backtest
 spatial      diffusion CA, random-walk sources, agent sim with social forces
 ops          the batch-last EKF/EKS core and the CUDA kernels
 models       batch-last SI-alpha system equations, the rollout step
 regression   batched NNLS with intercept refinement
 control      NPI cost, epsilon grid, Pareto front, Monte-Carlo schedules
-data         NumPy-only preprocessing and synthetic regions
-utils        NaN-ordered clips, the entry points' default device
+data         pandas-free OxCGRT loaders and XPRIZE CSV writers,
+             NumPy-only preprocessing, synthetic regions and CSVs
+utils        NaN-ordered clips, dates, the entry points' default device
 """
 
 __version__ = "0.1.0"

@@ -7,10 +7,15 @@ from .core import (
     forecast_scenarios,
     pareto_prescribe,
     monte_carlo_baseline,
+    scenario_from_schedule,
 )
-from .train_predict_prescribe import (run_pipeline,
+from .train_predict_prescribe import (run_pipeline, train_predict_prescribe,
+                                      build_batches_from_frames,
                                       TrainPredictPrescribeResult)
-from .checkpoint import trained_params_from_numpy, region_init_from_numpy
+from .checkpoint import (trained_params_from_numpy, region_init_from_numpy,
+                         save_trained_params, load_trained_params,
+                         save_trained_params_mat, load_trained_params_mat)
+from .forecast_quality import forecast_quality_assessment, BacktestResult
 
 __all__ = [
     "PipelineConfig",
@@ -21,8 +26,17 @@ __all__ = [
     "forecast_scenarios",
     "pareto_prescribe",
     "monte_carlo_baseline",
+    "scenario_from_schedule",
     "run_pipeline",
+    "train_predict_prescribe",
+    "build_batches_from_frames",
     "TrainPredictPrescribeResult",
     "trained_params_from_numpy",
     "region_init_from_numpy",
+    "save_trained_params",
+    "load_trained_params",
+    "save_trained_params_mat",
+    "load_trained_params_mat",
+    "forecast_quality_assessment",
+    "BacktestResult",
 ]

@@ -1,21 +1,37 @@
-"""Trained parameters carried across packages.
+"""Checkpoint files of trained per-region parameters, and carry-over.
 
-The parameter side of epidemicmodeling_tpu/pipelines/checkpoint.py: turn the
-JAX package's TrainedRegionParams / RegionInit (or any mapping of their
-fields, e.g. taken through ``np.asarray`` or loaded from an .npz) into the
-port's, so one stage of each package can run on the other's inputs. The
-npz/.mat checkpoint files are not ported yet (ROADMAP Queue A).
+Counterpart of epidemicmodeling_tpu/pipelines/checkpoint.py. The reference
+persists a MATLAB cell table {Country, Region, N_population, reg_coef_b,
+reg_coef_a, reg_coef_b2, reg_coef_a2} in a .mat file
+(Tools/TrainPredictPrescribeNPI.m:910-913, loaded by
+testScripts/testPrescribeXPRIZE01.m:62). The same parameters are stored
+as a portable .npz with a JSON names manifest, or in the reference's .mat
+schema (scipy.io); a file written by either package loads in the other.
+Orbax checkpoints are JAX-only and not ported.
+
+``trained_params_from_numpy`` / ``region_init_from_numpy`` turn the JAX
+package's TrainedRegionParams / RegionInit (or any mapping of their fields)
+into the port's, so one stage of each package can run on the other's inputs.
 """
 
 from __future__ import annotations
+
+import json
 
 import numpy as np
 
 from .core import RegionInit, TrainedRegionParams, to_tensor
 
+_ARRAYS = ("a1", "b1", "a2", "b2")
+
 
 def _fields(d) -> dict:
     return d._asdict() if hasattr(d, "_asdict") else dict(d)
+
+
+def _numpy(v) -> np.ndarray:
+    return np.asarray(v.detach().cpu().numpy() if hasattr(v, "detach")
+                      else v)
 
 
 def trained_params_from_numpy(d, dtype=None,
@@ -36,3 +52,101 @@ def region_init_from_numpy(d, dtype=None, device=None) -> RegionInit:
     d = _fields(d)
     return RegionInit(*(to_tensor(d[k], dtype, device)
                         for k in RegionInit._fields))
+
+
+def _with_suffix(path, suffix: str) -> str:
+    path = str(path)
+    return path if path.endswith(suffix) else path + suffix
+
+
+def save_trained_params(path, trained: TrainedRegionParams) -> None:
+    """Save per-region trained coefficients to ``path`` (.npz appended if
+    missing): the arrays in their own dtype, the names as a JSON list."""
+    np.savez(_with_suffix(path, ".npz"),
+             names=json.dumps(list(trained.names)),
+             population=_numpy(trained.population),
+             **{k: _numpy(getattr(trained, k)) for k in _ARRAYS})
+
+
+def load_trained_params(path) -> TrainedRegionParams:
+    """Load a save_trained_params .npz (either package's): CPU tensors in
+    the stored dtype (the testPrescribeXPRIZE01.m:62 flow, prescribe without
+    retraining)."""
+    z = np.load(_with_suffix(path, ".npz"), allow_pickle=False)
+    return trained_params_from_numpy(dict(
+        names=json.loads(str(z["names"])), population=z["population"],
+        **{k: z[k] for k in _ARRAYS}))
+
+
+def load_trained_params_mat(path) -> TrainedRegionParams:
+    """Import the reference's own trained-parameter checkpoint: a MATLAB
+    cell table {CountryName, RegionName, N_population, coef0, coef,
+    coef0_2, coef_2} with a header row (Tools/TrainPredictPrescribeNPI.m:
+    91,910-913). Coefficient vectors are cut or zero-padded to 12 NPIs.
+    Returns float64 CPU tensors."""
+    import scipy.io as sio
+
+    tbl = sio.loadmat(str(path))["TrainedModelParams"]
+
+    def scalar(cell):
+        v = np.squeeze(cell)
+        return float(v) if v.size else 0.0
+
+    def vec12(cell):
+        v = np.asarray(cell, float).ravel()
+        out = np.zeros(12)
+        out[:min(12, v.size)] = v[:12]
+        return out
+
+    def name(cell):
+        v = np.squeeze(cell)
+        return str(v) if v.size else ""
+
+    rows = [tbl[r] for r in range(1, tbl.shape[0])]   # row 0: the header
+    return trained_params_from_numpy(dict(
+        names=[f"{name(row[0])} {name(row[1])}" for row in rows],
+        population=[scalar(row[2]) for row in rows],
+        b1=np.array([scalar(row[3]) for row in rows]),
+        a1=np.array([vec12(row[4]) for row in rows]).reshape(-1, 12),
+        b2=np.array([scalar(row[5]) for row in rows]),
+        a2=np.array([vec12(row[6]) for row in rows]).reshape(-1, 12)))
+
+
+def save_trained_params_mat(path, trained: TrainedRegionParams) -> str:
+    """Export to the reference's .mat schema (the TrainedModelParams cell
+    table of TrainPredictPrescribeNPI.m:910-913), the inverse of
+    load_trained_params_mat. Returns the path written (.mat appended if
+    missing)."""
+    import scipy.io as sio
+    from ..data.xprize_io import _split_geo
+
+    path = _with_suffix(path, ".mat")
+    R = len(trained.names)
+    tbl = np.empty((R + 1, 7), dtype=object)
+    tbl[0] = ["CountryName", "RegionName", "N_population",
+              "coef0", "coef", "coef0_2", "coef_2"]
+    pop = _numpy(trained.population)
+    a1, b1, a2, b2 = (_numpy(getattr(trained, k)) for k in _ARRAYS)
+    for r, name in enumerate(trained.names):
+        tbl[r + 1, 0], tbl[r + 1, 1] = _split_geo(name)
+        tbl[r + 1, 2] = float(pop[r])
+        tbl[r + 1, 3] = float(b1[r])
+        tbl[r + 1, 4] = a1[r].reshape(-1, 1)
+        tbl[r + 1, 5] = float(b2[r])
+        tbl[r + 1, 6] = a2[r].reshape(-1, 1)
+    sio.savemat(path, {"TrainedModelParams": tbl})
+    return path
+
+
+def save_checkpoint(path, trained: TrainedRegionParams) -> None:
+    """save_trained_params_mat for a .mat path, else save_trained_params."""
+    save = (save_trained_params_mat if str(path).endswith(".mat")
+            else save_trained_params)
+    save(path, trained)
+
+
+def load_checkpoint(path) -> TrainedRegionParams:
+    """load_trained_params_mat for a .mat path, else load_trained_params."""
+    load = (load_trained_params_mat if str(path).endswith(".mat")
+            else load_trained_params)
+    return load(path)

@@ -8,8 +8,10 @@ and defaults), so one configuration drives both packages.
 
 The PyTorch port runs the batch-last path only, for "lanes" and "pallas"
 alike: the device decides between the hand-written CUDA kernels (CUDA
-tensors) and their plain versions (CPU tensors). "vmap" and
-stochastic_forecast raise NotImplementedError (ROADMAP A11 and Queue A).
+tensors) and their plain versions (CPU tensors). "vmap" and order != 1
+raise NotImplementedError (ROADMAP A11). With stochastic_forecast the
+rollouts draw their noise from a torch.Generator, or take the draws
+explicitly (pipelines.core.forecast_noise).
 """
 
 from __future__ import annotations

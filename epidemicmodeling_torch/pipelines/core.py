@@ -103,9 +103,6 @@ def check_config(cfg: PipelineConfig) -> None:
     if cfg.observation_type not in ("NEWCASES", "TOTALCASES"):
         raise ValueError(
             f"unknown observation type {cfg.observation_type!r}")
-    if cfg.stochastic_forecast:
-        raise NotImplementedError("stochastic_forecast=True is not ported "
-                                  "yet (ROADMAP Queue A)")
     if cfg.pareto_chunk < 1:
         raise ValueError(f"pareto_chunk={cfg.pareto_chunk} must be >= 1")
 
@@ -291,19 +288,42 @@ def _rollout_params(cfg, init, params):
     }
 
 
-def _rollout_from(cfg, init, params, s0, u_future):
-    """Deterministic SI-alpha rollout from the end-of-history state
+def forecast_noise(cfg, shape, dtype, device, generator=None, noise=None):
+    """The standard-normal process noise of stochastic forecasts
+    (SIalpha_Controlled.m noise terms), or None when cfg.stochastic_forecast
+    is off. ``noise`` gives it explicitly (e.g. the JAX package's
+    jax.random draws, for parity); else it is drawn from ``generator`` on
+    the generator's device (torch's default generator on ``device`` when
+    None). Returns a tensor of ``shape`` on ``device``."""
+    if not cfg.stochastic_forecast:
+        return None
+    if noise is None:
+        gdev = device if generator is None else generator.device
+        noise = torch.randn(shape, generator=generator, dtype=dtype,
+                            device=gdev)
+    noise = to_tensor(noise, dtype, device)
+    if tuple(noise.shape) != tuple(shape):
+        raise ValueError(f"noise has shape {tuple(noise.shape)}, expected "
+                         f"{tuple(shape)}")
+    return noise
+
+
+def _rollout_from(cfg, init, params, s0, u_future, noise=None):
+    """SI-alpha rollout from the end-of-history state
     (Tools/SIalpha_Controlled.m semantics, batched over regions).
-    s0: (R, 3); u_future: (R, H, P). Returns (R, H, 3), the initial
-    condition excluded."""
+    s0: (R, 3); u_future: (R, H, P); noise: (R, H, 3) standard-normal draws
+    scaled by the per-region noise stds (cfg.stochastic_forecast), or None
+    for the deterministic rollout. Returns (R, H, 3), the initial condition
+    excluded."""
     R, H, _ = u_future.shape
     p = _rollout_params(cfg, init, params)
-    zero = torch.zeros_like(s0[:, 0])
+    n = (torch.zeros_like(s0[:, 0]),) * 3
     s, i, al = s0[:, 0], s0[:, 1], s0[:, 2]
     out = []
     for t in range(H):
-        s, i, al = si_alpha_step_fields(s, i, al, u_future[:, t], zero,
-                                        zero, zero, p)
+        if noise is not None:
+            n = (noise[:, t, 0], noise[:, t, 1], noise[:, t, 2])
+        s, i, al = si_alpha_step_fields(s, i, al, u_future[:, t], *n, p)
         out.append(torch.stack([s, i, al], dim=-1))
     if not out:
         return s0.new_zeros((R, 0, 3))
@@ -313,13 +333,18 @@ def _rollout_from(cfg, init, params, s0, u_future):
 def forecast_scenarios(batch_full, trained: TrainedRegionParams,
                        init: RegionInit, npi_weights, npi_mins, npi_maxes,
                        T_hist: int, cfg: PipelineConfig = PipelineConfig(),
-                       actual_npis=None, dtype=None, device=None):
+                       actual_npis=None, dtype=None, device=None,
+                       generator: Optional[torch.Generator] = None,
+                       noise=None):
     """Fixed / zero / max (+ optional actual) NPI forecast scenarios
     (TrainPredictPrescribeNPI.m:367-412).
 
     batch_full: RegionBatch over T_full = T_hist + horizon with NaN
-    observations in the horizon. Returns (dict of ScenarioResult, the
-    historic smoothed states s_hist (R, T_hist, 3))."""
+    observations in the horizon. With cfg.stochastic_forecast the three
+    rollouts share one (R, H, 3) noise draw, as the JAX package's share one
+    key: ``noise``, or drawn from ``generator`` (see forecast_noise).
+    Returns (dict of ScenarioResult, the historic smoothed states s_hist
+    (R, T_hist, 3))."""
     check_config(cfg)
     batch_full, fd, dev = device_batch(batch_full, dtype, device)
     obs, npis = batch_full.observations, batch_full.npis
@@ -343,10 +368,11 @@ def forecast_scenarios(batch_full, trained: TrainedRegionParams,
     # historic trajectory of every rollout (:380-382,398,408,481)
     s_hist = _run_ekf3(cfg, u_fixed, obs, params, R_v, init).s_smooth[
         :, :T_hist, :]
+    noise = forecast_noise(cfg, (R, H, 3), fd, dev, generator, noise)
 
     def scenario(u_full):
         traj = _rollout_from(cfg, init, params, s_hist[:, -1, :],
-                             u_full[:, T_hist:, :])
+                             u_full[:, T_hist:, :], noise)
         s, i, al = (torch.cat([s_hist[..., k], traj[..., k]], dim=1)
                     for k in range(3))
         J0, J1 = npi_cost(s * i * al, u_full, w)
@@ -401,7 +427,9 @@ def pareto_prep(cfg, batch_full, trained, init, npi_weights, npi_mins,
                       torch.full((R, H, P), nan, **kw)], dim=1)
     return dict(u_in=u_in, obs=obs, R_v=batch_full.obs_noise_var,
                 params=params, QQ=QQ, PPs=PPs, ss_init=ss_init,
-                s_final=s_final, Ps_final=Ps_final, w_rp=w_rp)
+                s_final=s_final, Ps_final=Ps_final, w_rp=w_rp,
+                s_noise_std=init.s_noise_std.to(dtype),
+                i_noise_std=init.i_noise_std.to(dtype))
 
 
 def _tile_lanes(arr, Ec):
@@ -429,12 +457,16 @@ def sweep_lane_inputs(prep, eps_chunk):
     return out
 
 
-def _sweep_chunk_lanes_body(eps_chunk, prep, s_hist, *, cfg, T_hist, Ec):
+def _sweep_chunk_lanes_body(eps_chunk, prep, s_hist, *, cfg, T_hist, Ec,
+                            noise=None):
     """One epsilon chunk of the Pareto sweep on Ec * R lanes (epsilon-major,
     lane = e * R + r): the 6-state EKS with NaN future inputs, the rollout of
     the prescribed schedule from the end-of-history state, and the costs.
     J1 averages w * u over ALL rows of the smoothed schedule: the history,
     the prescription, and the smoother's zero last row (core.py:690).
+    noise: (Ec, R, H, 3) standard-normal draws of the rollout, one (R, H, 3)
+    draw an epsilon as the JAX package's keys give them, or None for the
+    deterministic rollout.
     Returns (J0, J1 (Ec, R), s, i, alpha (Ec, R, T) or None,
     u_prescribed (Ec, R, H, P))."""
     obs = prep["obs"]
@@ -455,16 +487,27 @@ def _sweep_chunk_lanes_body(eps_chunk, prep, s_hist, *, cfg, T_hist, Ec):
 
     u_presc_bl = u_sm[T_hist:]                            # (H, P, Bl)
     s_hist_bl = _tile_lanes(s_hist, Ec)                   # (T_hist, 3, Bl)
+    if noise is not None:
+        # (Ec, R, H, 3) -> (H, 3, Bl), lane = e * R + r
+        noise = noise.permute(2, 3, 0, 1).reshape(H, 3, Ec * R)
+        noise_std = torch.stack([
+            _tile_lanes(prep["s_noise_std"], Ec),
+            _tile_lanes(prep["i_noise_std"], Ec),
+            torch.full((Ec * R,), cfg.alpha_noise_std, dtype=fdtype,
+                       device=obs.device)])
     sv = s_hist_bl[-1]
     dt = rp["dt"]
     traj = []
     for t in range(H):
         s_, i_, al_ = sv[0], sv[1], sv[2]
-        s1 = clip_lo_hi(s_ - dt * (al_ * s_ * i_), 0.0, 1.0)
-        i1 = clip_lo_hi(i_ + dt * (al_ * s_ * i_ - rp["beta"] * i_),
-                        0.0, 1.0)
+        flow, rise = al_ * s_ * i_, al_ * s_ * i_ - rp["beta"] * i_
         drive = (-rp["gamma"] * al_ + rp["gamma"] * rp["b"]
                  + rp["gamma"] * _dot_p(rp["a"], rp["u_max"] - u_presc_bl[t]))
+        if noise is not None:
+            n_t = noise[t] * noise_std
+            flow, rise, drive = flow + n_t[0], rise + n_t[1], drive + n_t[2]
+        s1 = clip_lo_hi(s_ - dt * flow, 0.0, 1.0)
+        i1 = clip_lo_hi(i_ + dt * rise, 0.0, 1.0)
         a1 = clip_lo_hi(al_ + dt * drive, rp["alpha_min"], rp["alpha_max"])
         sv = torch.stack([s1, i1, a1])
         traj.append(sv)
@@ -487,14 +530,18 @@ def pareto_prescribe(batch_full, trained: TrainedRegionParams,
                      init: RegionInit, s_hist, epsilon_values, npi_weights,
                      npi_mins, npi_maxes, T_hist: int,
                      cfg: PipelineConfig = PipelineConfig(), dtype=None,
-                     device=None):
+                     device=None, generator: Optional[torch.Generator] = None,
+                     noise=None):
     """The Pareto sweep (TrainPredictPrescribeNPI.m:414-494): for every
     epsilon, the 6-state optimal-control EKS with NaN future inputs and
     costate terminal conditions, the re-simulated prescribed schedule, and
     its (J0, J1). Epsilon is processed in chunks of ``cfg.pareto_chunk``
-    (the last chunk padded with the last epsilon). Returns a dict with J0/J1
-    (E, R), trajectories s/i/alpha (E, R, T_full) or None, prescriptions
-    u_prescribed (E, R, H, P) and epsilon (E,)."""
+    (the last chunk padded with the last epsilon). With
+    cfg.stochastic_forecast each epsilon's rollout takes its own (R, H, 3)
+    draw: ``noise`` (E, R, H, 3), else drawn chunk by chunk from
+    ``generator``. Returns a dict with J0/J1 (E, R), trajectories s/i/alpha
+    (E, R, T_full) or None, prescriptions u_prescribed (E, R, H, P) and
+    epsilon (E,)."""
     check_config(cfg)
     E = len(epsilon_values)
     if E == 0:
@@ -510,8 +557,19 @@ def pareto_prescribe(batch_full, trained: TrainedRegionParams,
     E_pad = -(-E // chunk) * chunk
     eps_padded = to_tensor(np.concatenate([eps, np.full(E_pad - E, eps[-1])]),
                            fd, dev)
-    outs = [_sweep_chunk_lanes_body(eps_padded[c0:c0 + chunk], prep, s_hist,
-                                    cfg=cfg, T_hist=T_hist, Ec=chunk)
+    R, T_full = prep["obs"].shape
+    H = T_full - T_hist
+    if noise is not None:
+        noise = forecast_noise(cfg, (E, R, H, 3), fd, dev, noise=noise)
+        if noise is not None and E_pad > E:
+            # the pad epsilons' rollouts are dropped: any draw will do
+            noise = torch.cat([noise, noise.new_zeros((E_pad - E, R, H, 3))])
+    outs = [_sweep_chunk_lanes_body(
+                eps_padded[c0:c0 + chunk], prep, s_hist, cfg=cfg,
+                T_hist=T_hist, Ec=chunk,
+                noise=(noise[c0:c0 + chunk] if noise is not None else
+                       forecast_noise(cfg, (chunk, R, H, 3), fd, dev,
+                                      generator)))
             for c0 in range(0, E_pad, chunk)]
     cat = lambda idx: (None if outs[0][idx] is None else
                        torch.cat([o[idx] for o in outs], dim=0)[:E])
@@ -525,7 +583,7 @@ def monte_carlo_baseline(batch_full, trained: TrainedRegionParams,
                          npi_maxes, T_hist: int,
                          cfg: PipelineConfig = PipelineConfig(),
                          generator: Optional[torch.Generator] = None,
-                         dtype=None, device=None, u_random=None):
+                         dtype=None, device=None, u_random=None, noise=None):
     """cfg.num_monte_carlo random-NPI rollouts per region
     (TrainPredictPrescribeNPI.m:496-522): half constant over time, half
     redrawn daily, each scored with npi_cost over [historic NPIs, random
@@ -533,7 +591,10 @@ def monte_carlo_baseline(batch_full, trained: TrainedRegionParams,
     rollout loop.
 
     u_random: optional (N, H, P) schedules to score (e.g. the JAX package's,
-    for parity); drawn from ``generator`` when None. Returns dict J0, J1
+    for parity); drawn from ``generator`` when None. noise: with
+    cfg.stochastic_forecast, the (N, R, H, 3) draws of the rollouts (one
+    (R, H, 3) draw a scenario, as the JAX package's keys give them); drawn
+    from ``generator`` after the schedules when None. Returns dict J0, J1
     (N, R) and u_random."""
     check_config(cfg)
     batch_full, fd, dev = device_batch(batch_full, dtype, device)
@@ -554,12 +615,15 @@ def monte_carlo_baseline(batch_full, trained: TrainedRegionParams,
     p = _rollout_params(cfg, init, params)
     w = _region_weights(npi_weights, R, P, fd, dev)
 
-    zero = torch.zeros((N, R), dtype=fd, device=dev)
+    noise = forecast_noise(cfg, (N, R, H, 3), fd, dev, generator, noise)
+    n = (torch.zeros((N, R), dtype=fd, device=dev),) * 3
     s, i, al = (s_hist[:, -1, k].expand(N, R) for k in range(3))
     fut_cases = torch.zeros((N, R), dtype=fd, device=dev)
     for t in range(H):
+        if noise is not None:
+            n = (noise[:, :, t, 0], noise[:, :, t, 1], noise[:, :, t, 2])
         s, i, al = si_alpha_step_fields(s, i, al, u_random[:, t, None, :],
-                                        zero, zero, zero, p)
+                                        *n, p)
         fut_cases = fut_cases + s * i * al
     hist_cases = torch.sum(s_hist[..., 0] * s_hist[..., 1] * s_hist[..., 2],
                            dim=-1)
@@ -568,3 +632,36 @@ def monte_carlo_baseline(batch_full, trained: TrainedRegionParams,
     fut_w = torch.einsum("nhp,rp->nr", u_random, w)
     J1 = (hist_w[None, :] + fut_w) / (T_full * P)
     return {"J0": J0, "J1": J1, "u_random": u_random}
+
+
+def scenario_from_schedule(batch_full, trained: TrainedRegionParams,
+                           init: RegionInit, s_hist, u_future, npi_weights,
+                           npi_mins, npi_maxes, T_hist: int,
+                           cfg: PipelineConfig = PipelineConfig(),
+                           generator: Optional[torch.Generator] = None,
+                           dtype=None, device=None,
+                           noise=None) -> ScenarioResult:
+    """Forecast under an externally supplied NPI plan (the XPRIZE
+    ``future_ip.csv`` semantics: new cases conditioned on a given future
+    intervention schedule; see data.read_future_ip), rolled out from the
+    end of the historic states (core.py:941-984).
+
+    u_future: (R, H, P) plan over the forecast horizon. noise: the
+    (R, H, 3) draws with cfg.stochastic_forecast (see forecast_noise)."""
+    batch_full, fd, dev = device_batch(batch_full, dtype, device)
+    npis = batch_full.npis
+    R, T_full, P = npis.shape
+    u_future = to_tensor(u_future, fd, dev)
+    s_hist = to_tensor(s_hist, fd, dev)
+    params = stage_params(cfg, batch_full, trained, npi_mins, npi_maxes, fd,
+                          dev)
+    noise = forecast_noise(cfg, tuple(u_future.shape[:2]) + (3,), fd, dev,
+                           generator, noise)
+    traj = _rollout_from(cfg, init, params, s_hist[:, -1, :], u_future,
+                         noise)
+    s, i, al = (torch.cat([s_hist[..., k], traj[..., k]], dim=1)
+                for k in range(3))
+    u_full = torch.cat([npis[:, :T_hist, :], u_future], dim=1)
+    w = _region_weights(npi_weights, R, P, fd, dev)[:, None, :]
+    J0, J1 = npi_cost(s * i * al, u_full, w)
+    return ScenarioResult(s, i, al, u_full, J0, J1)

@@ -1,23 +1,31 @@
 """The flagship end-to-end pipeline: train -> predict -> prescribe.
 
-Counterpart of run_pipeline in
-epidemicmodeling_tpu/pipelines/train_predict_prescribe.py:235-324 (the XPRIZE
-product, Tools/TrainPredictPrescribeNPI.m): a batched two-round EKF +
-regression trainer, forecast scenarios, the Pareto epsilon sweep of the
-6-state optimal-control EKS, and a Monte-Carlo random-policy baseline, with
-no Python loop over regions. The CSV entry point (train_predict_prescribe),
-the CLI and the mesh are not ported yet (ROADMAP Queue A).
+Counterpart of epidemicmodeling_tpu/pipelines/train_predict_prescribe.py (the
+XPRIZE product, Tools/TrainPredictPrescribeNPI.m): the CSV entry point
+train_predict_prescribe, which slices the OxCGRT table into region batches
+(build_batches_from_frames), and run_pipeline on those batches: a batched
+two-round EKF + regression trainer, forecast scenarios, the Pareto epsilon
+sweep of the 6-state optimal-control EKS, and a Monte-Carlo random-policy
+baseline, with no Python loop over regions. The device mesh is not ported
+yet (ROADMAP A18).
 """
 
 from __future__ import annotations
 
+import datetime as _dt
 import time
-from typing import NamedTuple
+import warnings
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ..control import pareto_front_mask_batched
+from ..data.oxford import load_geo_list, load_oxford_data, load_populations
+from ..data.preprocess import (OXFORD_NPI_COLUMNS, build_region_batch,
+                               forward_fill_npis, preprocess_region)
+from ..utils.dates import num_days_between
+from ..utils.device import resolve_device
 from .config import PipelineConfig
 from .core import (TrainOutputs, TrainedRegionParams, check_config,
                    device_batch, forecast_scenarios, monte_carlo_baseline,
@@ -35,6 +43,8 @@ class TrainPredictPrescribeResult(NamedTuple):
     batch_train: object
     batch_full: object
     stage_seconds: dict            # host wall per stage, device synchronized
+                                   # (train_predict_prescribe adds
+                                   # "read_csv", the loaders' wall)
 
 
 def _realign(trained: TrainedRegionParams, names, dtype, device):
@@ -52,6 +62,198 @@ def _realign(trained: TrainedRegionParams, names, dtype, device):
         population=np.asarray(trained.population)[order],
         a1=take(trained.a1), b1=take(trained.b1),
         a2=take(trained.a2), b2=take(trained.b2))
+
+
+def _ordinal(date_num) -> int:
+    d = int(date_num)
+    return _dt.date(d // 10000, d // 100 % 100, d % 100).toordinal()
+
+
+def build_batches_from_frames(table, pops, geo_ids, start_train, end_train,
+                              end_predict, npi_columns=None,
+                              cfg: PipelineConfig = PipelineConfig()):
+    """Slice the OxCGRT table into training and full-horizon RegionBatches
+    (train_predict_prescribe.py:41-134, the script-side extraction of
+    Tools/TrainPredictPrescribeNPI.m:93-197): regions keyed by
+    "Country Region", cropped to [start_train, end_train] for training, the
+    horizon to end_predict appended as NaN observations.
+
+    table: data.oxford.OxfordTable (load_oxford_data); pops: {GeoID:
+    population} (load_populations). Regions with fewer than two training
+    rows or no population are skipped with a warning; duplicate dates and
+    calendar gaps are refused. Returns (batch_train, batch_full,
+    actual_npis (R, T_full, P), T_hist, horizon)."""
+    npi_columns = list(npi_columns or OXFORD_NPI_COLUMNS)
+    missing_cols = [c for c in npi_columns if c not in table.npi_columns]
+    if missing_cols:
+        raise ValueError(
+            f"data table is missing required columns {missing_cols} — "
+            "load it with load_oxford_data(path, npi_columns); check "
+            "npi_columns spelling against the file header")
+    npis = table.npis[:, [table.npi_columns.index(c) for c in npi_columns]]
+    d0 = int(str(start_train).replace("-", ""))
+    d1 = int(str(end_train).replace("-", ""))
+    d2 = int(str(end_predict).replace("-", ""))
+    horizon = num_days_between(str(end_train), str(end_predict))
+
+    rows_of = {}
+    for k, g in enumerate(table.geo_id):
+        rows_of.setdefault(g, []).append(k)
+    series, names, actual_list = [], [], []
+    for gid in geo_ids:
+        rows = np.asarray(rows_of.get(gid, []), np.int64)
+        dates = table.date_num[rows]
+        rows = rows[(dates >= d0) & (dates <= d2)]
+        # rows are consumed positionally as consecutive days, while the
+        # horizon stays calendar-based: sort, then refuse duplicates and
+        # gaps rather than silently shifting every later date
+        rows = rows[np.argsort(table.date_num[rows], kind="stable")]
+        dates = table.date_num[rows]
+        dup = np.flatnonzero(dates[1:] == dates[:-1])
+        if dup.size:
+            raise ValueError(
+                f"region {gid!r} has duplicate rows for date "
+                f"{int(dates[dup[0]])} — each (GeoID, Date) must be unique; "
+                "deduplicate the data file before training")
+        if len(rows) > 1:
+            dd = np.diff([_ordinal(d) for d in dates])
+            bad = np.flatnonzero(dd != 1)
+            if bad.size:
+                i = int(bad[0])
+                raise ValueError(
+                    f"region {gid!r} has a {int(dd[i])}-day calendar gap "
+                    f"after {int(dates[i])} inside [{start_train}, "
+                    f"{end_predict}] — rows are consumed as consecutive "
+                    "days, so a gap silently shifts every later date; fill "
+                    "or re-export the data file")
+        tr = rows[dates <= d1]
+        if len(tr) < 2:
+            warnings.warn(f"skipping region {gid!r}: insufficient training "
+                          f"data ({len(tr)} rows)")   # reference :103-106
+            continue
+        if gid not in pops:
+            warnings.warn(f"skipping region {gid!r}: no population entry")
+            continue
+        series.append(preprocess_region(
+            table.confirmed[tr], table.deaths[tr], npis[tr], pops[gid],
+            smoothing_win=cfg.smoothing_win,
+            obs_noise_factor=cfg.obs_noise_factor))
+        names.append(gid)
+        actual_list.append(forward_fill_npis(npis[rows]))
+    if not series:
+        raise ValueError(
+            "no region in the geo list has usable training data in "
+            f"[{start_train}, {end_train}]" + (
+                " (every one was skipped — see the warnings above for "
+                "per-region reasons: too few rows, or missing from the "
+                "populations file)" if geo_ids else
+                " (the geo list is empty)"))
+    T_hist = max(s.npis.shape[0] for s in series)
+    batch_train = build_region_batch(series, names,
+                                     obs_type=cfg.observation_type)
+    batch_full = build_region_batch(series, names,
+                                    obs_type=cfg.observation_type,
+                                    horizon=horizon)
+    T_full = T_hist + horizon
+    actual = np.zeros((len(series), T_full, len(npi_columns)))
+    for r, u in enumerate(actual_list):
+        L = min(len(u), T_full)
+        actual[r, :L] = u[:L]
+        if L < T_full and L:
+            actual[r, L:] = u[L - 1]
+    return batch_train, batch_full, actual, T_hist, horizon
+
+
+def train_predict_prescribe(
+    npi_weights,
+    epsilon_values,
+    start_train_date: str,
+    end_train_date: str,
+    start_regression_date: str,
+    end_predict_date: str,
+    data_file,
+    geo_file,
+    populations_file,
+    npi_columns=None,
+    npi_mins=None,
+    npi_maxes=None,
+    trained_params_file: Optional[str] = None,
+    cfg: PipelineConfig = PipelineConfig(),
+    generator: Optional[torch.Generator] = None,
+    dtype=None,
+    trained=None,
+    mesh=None,
+    device=None,
+) -> TrainPredictPrescribeResult:
+    """Drop-in equivalent of Tools/TrainPredictPrescribeNPI.m:1 with the same
+    argument intent (dates, files, NPI config, epsilon sweep, weights): load
+    the CSVs, build the batches, run run_pipeline, and write the trained
+    parameters to ``trained_params_file`` (.mat: the reference's cell table,
+    else .npz) when given.
+
+    generator seeds what is random (the Monte-Carlo schedules, stochastic
+    forecasts), taking the JAX package's ``key``'s place. device: the CUDA
+    card unless told otherwise (device="cpu"); resolved before any file is
+    read. mesh: not ported (ROADMAP A18)."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh= (several devices) is not ported yet (ROADMAP A18)")
+    device = resolve_device(device)
+    npi_columns = list(npi_columns or OXFORD_NPI_COLUMNS)
+    P = len(npi_columns)
+    npi_mins = np.zeros(P) if npi_mins is None else np.asarray(npi_mins, float)
+    if npi_maxes is None:
+        raise ValueError("npi_maxes is required (Oxford codebook maxima)")
+    npi_maxes = np.asarray(npi_maxes, float)
+    for nm, arr in (("npi_maxes", npi_maxes), ("npi_mins", npi_mins)):
+        if arr.shape != (P,):
+            raise ValueError(
+                f"{nm} has shape {arr.shape}, expected ({P},) — one "
+                f"entry per NPI column ({P} columns configured)")
+    weights = np.asarray(npi_weights.cpu() if isinstance(
+        npi_weights, torch.Tensor) else npi_weights, float)
+    if weights.ndim == 1 and weights.shape != (P,):
+        raise ValueError(
+            f"npi_weights has shape {weights.shape}, expected ({P},) "
+            f"shared weights or (R, {P}) per-region weights")
+    if len(np.atleast_1d(epsilon_values)) == 0:
+        raise ValueError("epsilon_values is empty — pass at least one "
+                         "tradeoff point (control.epsilon_grid(n) builds "
+                         "the reference's log+linear grid)")
+    if not (num_days_between(start_train_date, end_train_date) >= 0
+            and num_days_between(end_train_date, end_predict_date) >= 0):
+        raise ValueError("Invalid input times order.")
+    num_regression_days = num_days_between(start_regression_date,
+                                           end_train_date)
+
+    t0 = time.perf_counter()
+    table = load_oxford_data(data_file, npi_columns, start_train_date,
+                             end_predict_date)
+    pops = load_populations(populations_file)
+    requested = load_geo_list(geo_file)
+    present = set(table.geo_id)
+    geo_ids = [g for g in requested if g in present]
+    if requested and not geo_ids:
+        raise ValueError(
+            f"none of the {len(requested)} regions in {str(geo_file)!r} "
+            f"appear in {str(data_file)!r} (first requested: "
+            f"{requested[0]!r}) — wrong data file, or CountryName/"
+            "RegionName spelling mismatch")
+    batch_train, batch_full, actual_npis, T_hist, _ = \
+        build_batches_from_frames(table, pops, geo_ids, start_train_date,
+                                  end_train_date, end_predict_date,
+                                  npi_columns, cfg)
+    read_s = time.perf_counter() - t0
+
+    result = run_pipeline(batch_train, batch_full, actual_npis, T_hist,
+                          weights, epsilon_values, npi_mins, npi_maxes,
+                          num_regression_days, cfg, generator, dtype,
+                          trained=trained, device=device)
+    result.stage_seconds["read_csv"] = read_s
+    if trained_params_file:
+        from .checkpoint import save_checkpoint
+        save_checkpoint(trained_params_file, result.trained)
+    return result
 
 
 def run_pipeline(batch_train, batch_full, actual_npis, T_hist, npi_weights,
@@ -72,7 +274,9 @@ def run_pipeline(batch_train, batch_full, actual_npis, T_hist, npi_weights,
     checkpoint without retraining, testScripts/testPrescribeXPRIZE01.m);
     rows are re-aligned to the batch's regions by name.
     generator / u_random: the Monte-Carlo schedules are drawn from
-    ``generator`` unless ``u_random`` (N, H, P) gives them.
+    ``generator`` unless ``u_random`` (N, H, P) gives them; so is the
+    rollouts' noise with cfg.stochastic_forecast (scenarios, sweep, Monte
+    Carlo, in that order).
     """
     check_config(cfg)
     batch_train, dtype, device = device_batch(batch_train, dtype, device)
@@ -103,11 +307,13 @@ def run_pipeline(batch_train, batch_full, actual_npis, T_hist, npi_weights,
     lap("train")
     scen, s_hist = forecast_scenarios(
         batch_full, train_out.trained, train_out.init, npi_weights,
-        npi_mins, npi_maxes, T_hist, cfg, actual_npis=actual_npis)
+        npi_mins, npi_maxes, T_hist, cfg, actual_npis=actual_npis,
+        generator=generator)
     lap("scenarios")
     par = pareto_prescribe(
         batch_full, train_out.trained, train_out.init, s_hist,
-        epsilon_values, npi_weights, npi_mins, npi_maxes, T_hist, cfg)
+        epsilon_values, npi_weights, npi_mins, npi_maxes, T_hist, cfg,
+        generator=generator)
     lap("pareto")
     mc = monte_carlo_baseline(
         batch_full, train_out.trained, train_out.init, s_hist, npi_weights,

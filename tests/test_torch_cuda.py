@@ -419,14 +419,15 @@ def test_stencil_rollout_refuses_what_it_cannot_take(cuda):
 
 @pytest.mark.parametrize("beta", [1.0, 0.9])
 @pytest.mark.parametrize("obs_type", ["NEWCASES", "TOTALCASES"])
-@pytest.mark.parametrize("T", [1, 440, 532])
-@pytest.mark.parametrize("B", [1, 31, 235, 1000])
+@pytest.mark.parametrize("B,T", [(B, T) for B in (1, 31, 235, 1000)
+                                 for T in (1, 440, 532)] + [(14100, 440)])
 def test_ekf3_kernel_at_path_shapes(cuda, B, T, obs_type, beta):
     """ekf3 at the train and scenario lengths (T = 440, 532) and T = 1, at
     ragged B (at T = 440 and 532, B = 1000 keeps its step records in the
-    device-memory scratch, the others in shared memory), both observation
-    types, fixed and adaptive R: one launch a call, within chip_smoke's
-    EKF3_BOUNDS of the plain version."""
+    device-memory scratch, the others in shared memory), and at the
+    backtest's 235 x 60 (region, start) lanes at T = 440 (the scratch), both
+    observation types, fixed and adaptive R: one launch a call, within
+    chip_smoke's EKF3_BOUNDS of the plain version."""
     args = packed_args(3, make_inputs(3, B=B, T=T, T_hist=max(1, T - 92),
                                       seed=B + T, obs_type=obs_type,
                                       dtype=np.float32), cuda)
@@ -474,3 +475,41 @@ def test_roofline_kernels_match_plain(cuda):
         roofline_kernel.copy_plus_one(x[:7])
     with pytest.raises(ValueError, match="float32"):
         roofline_kernel.fma_chain(x.double())
+
+
+# ------------------------------------------- the XPRIZE CLI on the card
+
+
+def test_cli_runs_both_kernels_on_the_card(cuda, tmp_path):
+    """The port's CLI end to end on a small CSV without --device: it runs on
+    the card with --backend pallas, launching ekf3 (train, scenarios) and
+    ekf6 (the sweep), and writes integer prescriptions in [0, max]."""
+    from epidemicmodeling_torch.data import (NPI_MAXES_DEFAULT,
+                                             OXFORD_NPI_COLUMNS,
+                                             synthetic_oxford_frame,
+                                             write_oxford_csvs)
+    from epidemicmodeling_torch.data.csvio import (parse_floats,
+                                                   read_csv_columns)
+    from epidemicmodeling_torch.pipelines.xprize_cli import main
+
+    files = write_oxford_csvs(tmp_path, *synthetic_oxford_frame(
+        n_regions=5, n_days=150, seed=2)[:2])
+    ekf3_before, ekf6_before = ekf3_kernel.launches, ekf6_kernel.launches
+    assert main(["--data", files["data"], "--geos", files["geos"],
+                 "--populations", files["populations"],
+                 "--start-train", "2020-03-01", "--end-train", "2020-06-30",
+                 "--end-predict", "2020-07-28", "--num-epsilon", "8",
+                 "--pareto-chunk", "4", "--num-monte-carlo", "16",
+                 "--backend", "pallas",
+                 "--prescriptions-out", str(tmp_path / "presc.csv"),
+                 "--predictions-out", str(tmp_path / "pred.csv")]) == 0
+    assert ekf3_kernel.launches - ekf3_before == 4
+    assert ekf6_kernel.launches - ekf6_before == 2
+    cols = read_csv_columns(tmp_path / "presc.csv")
+    u = np.stack([parse_floats(cols[c]) for c in OXFORD_NPI_COLUMNS], 1)
+    assert u.shape == (8 * 5 * 28, 12)
+    assert (u == np.round(u)).all() and (u >= 0).all()
+    assert (u <= NPI_MAXES_DEFAULT).all()
+    pred = parse_floats(read_csv_columns(tmp_path / "pred.csv")[
+        "PredictedDailyNewCases"])
+    assert np.isfinite(pred).all() and (pred >= 0).all()

@@ -12,6 +12,8 @@ and the Pareto fronts exactly (ROADMAP grading rule "Float64 twin on clean
 data").
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -188,8 +190,7 @@ def test_monte_carlo_draws_follow_the_law(slice_inputs, jax_result):
     assert np.isfinite(res.monte_carlo["J0"].numpy()).all()
 
 
-@pytest.mark.parametrize("change", [dict(backend="vmap"),
-                                    dict(stochastic_forecast=True)])
+@pytest.mark.parametrize("change", [dict(backend="vmap"), dict(order=2)])
 def test_unported_options_raise(slice_inputs, change):
     d = slice_inputs
     cfg = PipelineConfig(**dict(dict(backend="pallas", **COMMON), **change))
@@ -259,6 +260,205 @@ def test_port_reproduces_realistic_golden(tmp_path):
            "J0": res.pareto["J0"], "J1": res.pareto["J1"]}
     for k, v in got.items():
         np.testing.assert_allclose(v.numpy(), golden[k], **TOL, err_msg=k)
+
+
+def test_train_predict_prescribe_reproduces_realistic_golden(tmp_path):
+    """The port's own CSV entry point on the files
+    tests/test_realistic_data.py writes reproduces its committed golden."""
+    import os
+    from epidemicmodeling_tpu.data import realistic_oxford_frame
+    from epidemicmodeling_torch.pipelines import train_predict_prescribe
+
+    df, pops, _ = realistic_oxford_frame(n_regions=4, n_days=200, seed=7)
+    df.to_csv(tmp_path / "oxford.csv", index=False)
+    pops.to_csv(tmp_path / "populations.csv", index=False)
+    pops[["CountryName", "RegionName"]].to_csv(tmp_path / "geos.csv",
+                                               index=False)
+    res = train_predict_prescribe(
+        npi_weights=np.ones(12),
+        epsilon_values=np.asarray(jax_epsilon_grid(6)),
+        start_train_date="2020-03-01", end_train_date="2020-08-17",
+        start_regression_date="2020-03-01", end_predict_date="2020-09-16",
+        data_file=str(tmp_path / "oxford.csv"),
+        geo_file=str(tmp_path / "geos.csv"),
+        populations_file=str(tmp_path / "populations.csv"),
+        npi_maxes=NPI_MAXES_DEFAULT,
+        cfg=PipelineConfig(backend="pallas", smoother_gain="solve",
+                           pareto_chunk=3, num_monte_carlo=16),
+        generator=torch.Generator().manual_seed(0), dtype=torch.float64,
+        trained_params_file=str(tmp_path / "trained.mat"), device="cpu")
+    golden = np.load(os.path.join(os.path.dirname(__file__), "goldens",
+                                  "realistic_pipeline.npz"))
+    got = {"a2": res.trained.a2, "b2": res.trained.b2,
+           "J0": res.pareto["J0"], "J1": res.pareto["J1"]}
+    for k, v in got.items():
+        np.testing.assert_allclose(v.numpy(), golden[k], **TOL, err_msg=k)
+    assert res.stage_seconds["read_csv"] > 0
+    from epidemicmodeling_torch.pipelines import load_trained_params_mat
+    np.testing.assert_array_equal(
+        load_trained_params_mat(tmp_path / "trained.mat").a2.numpy(),
+        res.trained.a2.numpy())
+
+
+@pytest.mark.parametrize("entry", ["train_predict_prescribe",
+                                   "forecast_quality_assessment"])
+def test_new_entry_points_default_to_the_card(slice_inputs, tmp_path,
+                                              monkeypatch, entry):
+    """Without device= the CSV entry point and the backtest run on the CUDA
+    card, so with no card they raise before any work."""
+    from epidemicmodeling_torch.ops.cuda import ekf3_kernel
+    from epidemicmodeling_torch import pipelines
+
+    def ran(*args, **kwargs):
+        raise AssertionError("ran on the CPU")
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(ekf3_kernel, "ekf3_plain", ran)
+    cfg = PipelineConfig(backend="pallas", **COMMON)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        if entry == "train_predict_prescribe":
+            missing = str(tmp_path / "never_read.csv")
+            pipelines.train_predict_prescribe(
+                np.ones(12), slice_inputs["eps"], "2020-03-01",
+                "2020-05-01", "2020-03-01", "2020-06-01", missing, missing,
+                missing, npi_maxes=NPI_MAXES_DEFAULT, cfg=cfg)
+        else:
+            pipelines.forecast_quality_assessment(
+                slice_inputs["bt"], np.zeros(12), NPI_MAXES_DEFAULT, 40, 10,
+                5, cfg)
+
+
+@pytest.fixture(scope="module")
+def stochastic(slice_inputs, jax_result):
+    """The JAX stages with cfg.stochastic_forecast and a key, on the
+    deterministic run's trained parameters, and the draws they make:
+    (R, H, 3) from the key itself for the scenarios (one draw shared by the
+    rollouts), one an epsilon from split(key, E) for the sweep, one a
+    schedule from split(split(key)[1], N) for the Monte Carlo."""
+    import jax.numpy as jnp
+    from epidemicmodeling_tpu.pipelines import core as jcore
+    d = slice_inputs
+    cfg = JaxConfig(backend="lanes", stochastic_forecast=True,
+                    **dict(COMMON, pareto_chunk=4))
+    key = jax.random.PRNGKey(3)
+    R, H = 3, HORIZON
+    draw = lambda k: np.array(jax.random.normal(k, (R, H, 3), jnp.float64))
+    init = jcore.region_init(d["bt"], cfg)
+    tr = jax_result.trained
+    args = (np.ones(12), np.zeros(12), NPI_MAXES_DEFAULT)
+    scen, s_hist = jcore.forecast_scenarios(
+        d["bf"], tr, init, *args, T_HIST, cfg, key=key)
+    plan = np.random.default_rng(4).integers(0, 3, (R, H, 12)).astype(float)
+    planned = jcore.scenario_from_schedule(
+        d["bf"], tr, init, s_hist, plan, *args, T_HIST, cfg, key=key)
+    par = jcore.pareto_prescribe(d["bf"], tr, init, s_hist, d["eps"],
+                                 args[0], *args[1:], T_HIST, cfg, key=key)
+    mc = jcore.monte_carlo_baseline(d["bf"], tr, init, s_hist, *args,
+                                    T_HIST, cfg, key=key)
+    k_noise = jax.random.split(key)[1]
+    return dict(
+        cfg=cfg, init=init, scen=scen, s_hist=s_hist, plan=plan,
+        planned=planned, par=par, mc=mc, scen_noise=draw(key),
+        sweep_noise=np.stack([draw(k) for k in jax.random.split(key, 4)]),
+        mc_noise=np.stack([draw(k) for k in
+                           jax.random.split(k_noise, cfg.num_monte_carlo)]),
+        rollout=jcore._rollout_from(
+            cfg, init, dict(jcore._base_params(
+                cfg, np.zeros(12), NPI_MAXES_DEFAULT, R, jnp.float64),
+                a=tr.a2, b=tr.b2), s_hist[:, -1, :], jnp.asarray(plan), key))
+
+
+def _port_stage_inputs(slice_inputs, jax_result, stochastic):
+    from epidemicmodeling_torch.pipelines import region_init_from_numpy
+    return (PipelineConfig(**dataclasses.asdict(stochastic["cfg"])),
+            trained_params_from_numpy(jax_result.trained),
+            region_init_from_numpy(stochastic["init"]))
+
+
+def test_stochastic_rollout_and_scenarios_match_jax(slice_inputs, jax_result,
+                                                    stochastic):
+    """_rollout_from, the three scenarios and scenario_from_schedule with
+    the JAX draws passed in as noise."""
+    from epidemicmodeling_torch.pipelines import (forecast_scenarios,
+                                                  scenario_from_schedule)
+    from epidemicmodeling_torch.pipelines.core import (_rollout_from,
+                                                       stage_params)
+    cfg, trained, init = _port_stage_inputs(slice_inputs, jax_result,
+                                            stochastic)
+    d, st = slice_inputs, stochastic
+    kw = dict(dtype=torch.float64, device="cpu")
+    args = (np.ones(12), np.zeros(12), NPI_MAXES_DEFAULT)
+    s_hist = torch.from_numpy(np.array(st["s_hist"]))
+    params = stage_params(cfg, d["bf"], trained, *args[1:], torch.float64,
+                          torch.device("cpu"))
+    traj = _rollout_from(cfg, init, params, s_hist[:, -1, :],
+                         torch.from_numpy(st["plan"]),
+                         torch.from_numpy(st["scen_noise"]))
+    np.testing.assert_allclose(traj.numpy(), np.asarray(st["rollout"]), **TOL)
+    scen, _ = forecast_scenarios(d["bf"], trained, init, *args, T_HIST, cfg,
+                                 noise=st["scen_noise"], **kw)
+    got = dict(scen, planned=scenario_from_schedule(
+        d["bf"], trained, init, s_hist, st["plan"], *args, T_HIST, cfg,
+        noise=st["scen_noise"], **kw))
+    for name, ref in dict(st["scen"], planned=st["planned"]).items():
+        for f in ("s", "i", "alpha", "u", "J0", "J1"):
+            np.testing.assert_allclose(
+                getattr(got[name], f).numpy(), np.asarray(getattr(ref, f)),
+                **TOL, err_msg=f"{name} {f}")
+    # the noise moves the forecast
+    det, _ = forecast_scenarios(d["bf"], trained, init, *args, T_HIST,
+                                PipelineConfig(backend="pallas", **COMMON),
+                                **kw)
+    assert not torch.allclose(det["fixed"].i, scen["fixed"].i)
+
+
+def test_stochastic_sweep_and_monte_carlo_match_jax(slice_inputs, jax_result,
+                                                    stochastic):
+    """One Pareto chunk (4 epsilons, one draw each) and the Monte Carlo
+    with the JAX draws passed in as noise."""
+    from epidemicmodeling_torch.pipelines import (monte_carlo_baseline,
+                                                  pareto_prescribe)
+    cfg, trained, init = _port_stage_inputs(slice_inputs, jax_result,
+                                            stochastic)
+    d, st = slice_inputs, stochastic
+    kw = dict(dtype=torch.float64, device="cpu")
+    args = (np.ones(12), np.zeros(12), NPI_MAXES_DEFAULT)
+    par = pareto_prescribe(d["bf"], trained, init, np.asarray(st["s_hist"]),
+                           d["eps"], *args, T_HIST, cfg,
+                           noise=st["sweep_noise"], **kw)
+    for k in ("J0", "J1", "s", "i", "alpha"):
+        np.testing.assert_allclose(par[k].numpy(), np.asarray(st["par"][k]),
+                                   **TOL, err_msg=f"pareto {k}")
+    np.testing.assert_array_equal(par["u_prescribed"].numpy(),
+                                  np.asarray(st["par"]["u_prescribed"]))
+    mc = monte_carlo_baseline(
+        d["bf"], trained, init, np.asarray(st["s_hist"]), *args, T_HIST,
+        cfg, u_random=np.asarray(st["mc"]["u_random"]),
+        noise=st["mc_noise"], **kw)
+    for k in ("J0", "J1"):
+        np.testing.assert_allclose(mc[k].numpy(), np.asarray(st["mc"][k]),
+                                   **TOL, err_msg=f"monte carlo {k}")
+
+
+def test_stochastic_pipeline_draws_from_the_generator(slice_inputs):
+    """Without explicit noise run_pipeline draws it from the generator: one
+    seed gives one result, another seed another."""
+    d = slice_inputs
+    cfg = PipelineConfig(backend="pallas", stochastic_forecast=True, **COMMON)
+    run = lambda seed: run_pipeline(
+        d["bt"], d["bf"], None, T_HIST, np.ones(12), d["eps"], np.zeros(12),
+        NPI_MAXES_DEFAULT, T_HIST, cfg, dtype=torch.float64, device="cpu",
+        generator=torch.Generator().manual_seed(seed))
+    a, b, c = run(1), run(1), run(2)
+    for k in ("J0", "J1"):
+        assert torch.equal(a.pareto[k], b.pareto[k])
+        assert torch.isfinite(a.monte_carlo[k]).all()
+    assert torch.equal(a.scenarios["fixed"].i, b.scenarios["fixed"].i)
+    assert not torch.equal(a.scenarios["fixed"].i, c.scenarios["fixed"].i)
+    with pytest.raises(ValueError, match="noise has shape"):
+        from epidemicmodeling_torch.pipelines.core import forecast_noise
+        forecast_noise(cfg, (3, 4, 3), torch.float64, torch.device("cpu"),
+                       noise=np.zeros((3, 5, 3)))
 
 
 def test_region_init_matches_and_carries_over(slice_inputs):
