@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's two slices on one NVIDIA GPU.
+"""Smoke run of the PyTorch port's slices on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -69,7 +69,18 @@ CUDA toolkit (nvcc). In order, it:
    then one at T = 440, B = 14,100, its step records in the device
    scratch), that launch's outputs held against ekf3's plain version at
    EKF3_BOUNDS with both timed, and the error curves finite where the truth
-   is positive; prints the warm wall and the filter-days/s.
+   is positive; prints the warm wall and the filter-days/s;
+12. drives the generic EKF/EKS core (backend "vmap", the default, with the
+   MATLAB-exact pinv smoother gain) and the LASSO and element-wise
+   regressions: run_pipeline on a small input in float64 on the card
+   against the CPU, once per regression type (prescriptions and fronts
+   equal, the rest at rtol 1e-9); the pinv's knife-edge inputs on the card
+   against the CPU, and its time over a sweep chunk's gains; run_pipeline
+   at the XPRIZE size cold then warm (stage walls, no EKS kernel launch,
+   device busy share, the main path's output checks), its train stage
+   against the "pallas" backend's; the backtest on the core against the
+   pallas backtest; the train stage with LASSO (50 folds) and with the
+   element-wise fits, with LASSO's sweep count.
 
 Every failed check raises, so the exit code is non-zero. Only when all
 phases pass does it print the kernel JSON line, the card's name and power
@@ -109,12 +120,15 @@ from epidemicmodeling_torch.ops.cuda import (build, ekf3_kernel, ekf6_kernel,
                                              stencil_kernel)
 from epidemicmodeling_torch.pipelines import (PipelineConfig,
                                               forecast_quality_assessment,
+                                              pareto_prescribe,
                                               run_pipeline,
                                               trained_params_from_numpy,
                                               xprize_cli)
+from epidemicmodeling_torch.pipelines import core
 from epidemicmodeling_torch.pipelines.core import (
     device_batch, ekf3_lane_inputs, pareto_prep, region_init, stage_params,
-    sweep_lane_inputs, to_tensor, train_regions)
+    sweep_eks_vmap, sweep_lane_inputs, to_tensor, train_regions)
+from epidemicmodeling_torch.ops.ekf import _matlab_pinv
 from epidemicmodeling_torch.regression import nnls_with_intercept
 from epidemicmodeling_torch.spatial import (PopulationSimConfig,
                                             diffusion_rollout,
@@ -255,6 +269,28 @@ CLI_START = "2020-03-01"
 N_PRESCRIPTIONS = 10
 # the backtest phase: bench.py's backtest leg (bench.py:768-800)
 BT_STARTS, BT_AHEAD = 60, 60
+# the vmap phase: the generic core on the card against the CPU in float64
+# at the tolerance the CPU tests hold it to against the JAX package; at the
+# XPRIZE width, float32, its train stage against the "pallas" backend's at
+# VMAP_TRAIN_BOUND (on the CPU at 16 regions x 440 days the two read
+# 1.5e-6 apart) and its backtest's error curves against the pallas
+# backtest's at VMAP_BACKTEST_BOUND (CPU, same size: 2.6e-4), both on the
+# scaled error |a - b| / (|b| + 1) (scripts/vmap_cpu_probe.py bounds)
+VMAP_REF_TOL = dict(rtol=1e-9, atol=1e-12)
+# the costate system's bound against the JAX package
+# (tests/test_torch_ekf_generic.py; its costates cross zero, and are
+# chaotic at the ulp level)
+VMAP_COSTATE_TOL = dict(rtol=1e-4, atol=1e-8)
+# prior covariances at or above this condition number fix the smoother
+# gains only to cond * eps >= 1e-4 (float64) on either device
+ILL_COND = 1e12
+# LASSO's coordinate descent stops once no coefficient moves by more than
+# 1e-10 in a sweep, so the card's and the CPU's summation orders may leave
+# its coefficients that far apart: the CPU tests' lasso bound
+VMAP_LASSO_COEF_TOL = dict(rtol=1e-9, atol=1e-10)
+VMAP_TRAIN_BOUND = 1e-4
+VMAP_BACKTEST_BOUND = 1e-2
+REGRESSIONS = ("NONNEGATIVELS", "LASSO", "NONNEGATIVELS-ELEMENT-WISE")
 
 
 def log(msg: str) -> None:
@@ -518,11 +554,11 @@ def all_tensors(res):
     yield from res.monte_carlo.values()
 
 
-def main_path(device, bt, bf, actual):
-    cfg = PipelineConfig(backend="pallas", smoother_gain="solve",
-                         pareto_chunk=CHUNK, num_monte_carlo=N_MC)
-    eps = epsilon_grid(N_EPS).numpy()
-
+def xprize_run(device, bt, bf, actual, cfg, eps, tag, profile=True):
+    """run_pipeline at the XPRIZE size, cold then warm, each with its
+    stage walls and kernel launches; with profile, the device busy share of
+    one more (profiled) run; then the outputs' checks. Returns (the warm
+    result, its wall, its launches)."""
     def run():
         reset_launches()
         t0 = time.perf_counter()
@@ -534,46 +570,63 @@ def main_path(device, bt, bf, actual):
         wall = time.perf_counter() - t0
         return res, wall, read_launches()
 
-    for tag in ("cold", "warm"):
+    for run_tag in ("cold", "warm"):
         res, wall, launches = run()
         stages = " ".join(f"{k}={v:.3f}s" for k, v in
                           res.stage_seconds.items())
-        log(f"main path {tag}: wall={wall:.3f}s {stages} "
+        log(f"{tag} {run_tag}: wall={wall:.3f}s {stages} "
             f"launches={launches}")
-    device_time(run, wall)
-    fd_rate = N_EPS * R_REGIONS * (T_HIST + HORIZON) \
+    if profile:
+        device_time(run, wall)
+    fd_rate = len(eps) * R_REGIONS * (T_HIST + HORIZON) \
         / res.stage_seconds["pareto"]
-    log(f"sweep filter-days/s (warm, pareto stage wall): {fd_rate:.4e}")
-    log(f"peak device memory: "
+    log(f"{tag}: sweep filter-days/s (warm, pareto stage wall): "
+        f"{fd_rate:.4e}")
+    log(f"{tag}: peak device memory: "
         f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB")
+    check_xprize_outputs(res, eps, device, tag)
+    return res, wall, launches
 
-    check(launches["ekf3"] >= 3, f"ekf3 launched {launches['ekf3']} times")
-    check(launches["ekf6"] >= 10, f"ekf6 launched {launches['ekf6']} times")
+
+def check_xprize_outputs(res, eps, device, tag):
+    """The XPRIZE run's outputs: on the card, finite costs, a2 >= 0,
+    bang-bang prescriptions of the right shape, a non-empty front."""
     check(all(t.device == device for t in all_tensors(res)),
-          f"an output tensor is not on {device}")
+          f"{tag}: an output tensor is not on {device}")
     a2 = res.trained.a2
     check(bool(torch.isfinite(a2).all() and (a2 >= 0).all()),
-          "a2 not finite and >= 0")
+          f"{tag}: a2 not finite and >= 0")
     for src, d in (("pareto", res.pareto), ("monte carlo", res.monte_carlo),
                    *((f"scenario {n}", s._asdict())
                      for n, s in res.scenarios.items())):
         check(bool(torch.isfinite(d["J0"]).all()
                    and torch.isfinite(d["J1"]).all()),
-              f"{src} costs not finite")
+              f"{tag}: {src} costs not finite")
     u = res.pareto["u_prescribed"]
-    check(tuple(u.shape) == (N_EPS, R_REGIONS, HORIZON, 12),
-          f"u_prescribed shape {tuple(u.shape)}")
+    check(tuple(u.shape) == (len(eps), R_REGIONS, HORIZON, 12),
+          f"{tag}: u_prescribed shape {tuple(u.shape)}")
     hi = to_tensor(NPI_MAXES_DEFAULT, F32, device)
     check(bool(((u == 0) | (u == hi)).all()),
-          "a prescribed cell is neither u_min nor u_max")
+          f"{tag}: a prescribed cell is neither u_min nor u_max")
     lo_eps, hi_eps = float(u[0].mean()), float(u[-1].mean())
-    log(f"mean prescribed NPI level: eps={eps[0]:.0e} -> {lo_eps:.4f}, "
-        f"eps={eps[-1]:.6f} -> {hi_eps:.4f}")
-    check(lo_eps >= hi_eps, "NPI level at eps=1e-12 below that at eps~1")
+    log(f"{tag}: mean prescribed NPI level: eps={eps[0]:.0e} -> "
+        f"{lo_eps:.4f}, eps={eps[-1]:.6f} -> {hi_eps:.4f}")
+    check(lo_eps >= hi_eps,
+          f"{tag}: NPI level at eps=1e-12 below that at eps~1")
     check(int(res.pareto_front.sum(dim=0).min()) >= 1,
-          "a region has an empty Pareto front")
+          f"{tag}: a region has an empty Pareto front")
     check(tuple(res.monte_carlo["J0"].shape) == (N_MC, R_REGIONS),
-          "monte carlo shape")
+          f"{tag}: monte carlo shape")
+
+
+def main_path(device, bt, bf, actual):
+    cfg = PipelineConfig(backend="pallas", smoother_gain="solve",
+                         pareto_chunk=CHUNK, num_monte_carlo=N_MC)
+    res, wall, launches = xprize_run(device, bt, bf, actual, cfg,
+                                     epsilon_grid(N_EPS).numpy(),
+                                     "main path")
+    check(launches["ekf3"] >= 3, f"ekf3 launched {launches['ekf3']} times")
+    check(launches["ekf6"] >= 10, f"ekf6 launched {launches['ekf6']} times")
     return res, wall, launches
 
 
@@ -596,7 +649,8 @@ def device_time(run, wall):
         log("device time: not measured (the profiler saw no device time)")
         return
     log(f"device busy (profiled run): {busy_ms:.3f} ms = "
-        f"{busy_ms / 1e3 / wall:.4f} of the warm wall; device launches "
+        f"{busy_ms / 1e3 / wall:.4f} of the warm wall (idle "
+        f"{1 - busy_ms / 1e3 / wall:.4f}); device launches "
         f"{sum(e.count for e in events)}")
     for e in events[:8]:
         log(f"  {dev(e) / 1e3:9.3f} ms x{e.count:6d}  {e.key[:90]}")
@@ -1234,6 +1288,381 @@ def backtest_phase(device, bt):
     return m, wall
 
 
+def close_ratio(a, b, tol) -> float:
+    """max |a - b| / (atol + rtol |b|) over the cells finite in b (<= 1:
+    within tol); inf when a and b are not finite in the same cells."""
+    a, b = a.double().cpu(), b.double().cpu()
+    if not torch.equal(torch.isfinite(a), torch.isfinite(b)):
+        return float("inf")
+    ok = torch.isfinite(b)
+    if not bool(ok.any()):
+        return 0.0
+    return float((torch.abs(a - b) / (tol["atol"] + tol["rtol"]
+                                      * torch.abs(b)))[ok].max())
+
+
+def vmap_reference_check(device):
+    """The "vmap" backend on a small input, float64, on the card against the
+    CPU, each stage from the same inputs (the pipeline is so sensitive to
+    its trained coefficients that a 1e-11 relative change moves one
+    region's historic states by 6.3e5 times rtol 1e-9 after the
+    element-wise fit: scripts/vmap_cpu_probe.py sensitivity, CPU run):
+    train_regions once per regression type (the coefficients at
+    VMAP_REF_TOL, LASSO's at VMAP_LASSO_COEF_TOL; the first round's
+    smoothed states and rho at VMAP_REF_TOL); then run_pipeline on both
+    from the CPU's NNLS coefficients: the historic states, the scenarios and
+    the Monte-Carlo costs at VMAP_REF_TOL; in the sweep, a lane (epsilon,
+    region) whose prior covariances reach cond >= ILL_COND (sweep_max_cond)
+    may differ, since its smoother gains are fixed only to cond * eps on
+    either device, and every other lane's prescriptions are equal and its
+    states and costs at VMAP_REF_TOL, and so the fronts of the regions
+    without such a lane (vmap_sweep_check holds the sweep's EKS where every
+    lane is well conditioned). No EKS kernel launch. 400 training days give
+    the regressions a full-rank design (the synthetic NPIs hold a level for
+    30 days, so 14 blocks against 12 NPIs and the intercept; at 100 days the
+    optimum is degenerate and the card and the CPU pick different
+    co-optimal NNLS supports). LASSO runs 5 folds here (50 at the XPRIZE
+    width) on the first 4 of the 16 regions: on the CPU its train stage at
+    16 regions took ~2 minutes, most of this check's time."""
+    T_h, H = 400, 20
+    f64, cpu = torch.float64, torch.device("cpu")
+    bt, bf, actual, _ = xprize_inputs(16, T_h, H, seed=1)
+
+    def both(fn):
+        out, walls = [], []
+        for dev in (device, cpu):
+            reset_launches()
+            t0 = time.perf_counter()
+            out.append(fn(dev))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            check(not any(read_launches().values()),
+                  "vmap reference: an EKS kernel launched")
+        return out, f"card {walls[0]:.3f}s cpu {walls[1]:.3f}s"
+
+    def hold(tag, pairs, tol):
+        ratios = {n: close_ratio(a, b, tol(n)) for n, (a, b) in pairs.items()}
+        worst = max(ratios, key=ratios.get)
+        for n, r in ratios.items():
+            check(r <= 1.0, f"vmap reference {tag}: {n} at {r:.3e} of "
+                            f"{tol(n)}")
+        return f"worst {worst}: {ratios[worst]:.3e} of {tol(worst)}"
+
+    for reg in REGRESSIONS:
+        cfg = PipelineConfig(backend="vmap", regression_type=reg,
+                             lasso_cv_folds=5)
+        b = bt if reg != "LASSO" else xprize_inputs(4, T_h, H, seed=1)[0]
+        (k, c), walls = both(lambda dev: train_regions(
+            b, MINS, NPI_MAXES_DEFAULT, T_h, cfg, dtype=f64, device=dev))
+        pairs = {n: (getattr(k.trained, n), getattr(c.trained, n))
+                 for n in ("a1", "b1", "a2", "b2")}
+        pairs["s_smooth_round1"] = (k.s_smooth_round1, c.s_smooth_round1)
+        pairs["rho_round1"] = (k.rho_round1, c.rho_round1)
+        coef = VMAP_LASSO_COEF_TOL if reg == "LASSO" else VMAP_REF_TOL
+        worst = hold(f"train {reg}", pairs,
+                     lambda n: VMAP_REF_TOL if "round1" in n else coef)
+        log(f"vmap reference train {reg} (card vs CPU, float64, "
+            f"{len(b.names)} regions x {T_h} days): {worst}; {walls}")
+        if reg == "NONNEGATIVELS":
+            trained = c.trained
+
+    cfg = PipelineConfig(backend="vmap", pareto_chunk=4, num_monte_carlo=32)
+    eps = epsilon_grid(8).numpy()
+    u_random = random_npi_schedules(torch.Generator().manual_seed(1), 32,
+                                    MINS, NPI_MAXES_DEFAULT, H)
+    (k, c), walls = both(lambda dev: run_pipeline(
+        bt, bf, actual, T_h, WEIGHTS, eps, MINS, NPI_MAXES_DEFAULT, T_h, cfg,
+        dtype=f64, device=dev, u_random=u_random, trained=trained))
+    pairs = {"s_hist": (k.s_hist, c.s_hist)}
+    for n, sc in c.scenarios.items():
+        for f in ("s", "i", "alpha", "J0", "J1"):
+            pairs[f"scenario {n} {f}"] = (getattr(k.scenarios[n], f),
+                                          getattr(sc, f))
+    for f in ("J0", "J1"):
+        pairs[f"monte carlo {f}"] = (k.monte_carlo[f], c.monte_carlo[f])
+    cond = sweep_max_cond(cfg, bt, trained, bf, eps, T_h)
+    calm = cond < ILL_COND                                     # (E, R)
+    for f in ("J0", "J1", "s", "i", "alpha"):
+        pairs[f"pareto {f} (well-conditioned lanes)"] = (
+            k.pareto[f].cpu()[calm], c.pareto[f][calm])
+    worst = hold("run_pipeline", pairs, lambda n: VMAP_REF_TOL)
+    u_k, u_c = k.pareto["u_prescribed"].cpu(), c.pareto["u_prescribed"]
+    u_diff = (u_k != u_c).flatten(2).any(dim=-1)
+    calm_regions = calm.all(dim=0)
+    front_same = torch.equal(k.pareto_front.cpu()[:, calm_regions],
+                             c.pareto_front[:, calm_regions])
+    log(f"vmap reference run_pipeline (card vs CPU from the CPU's NNLS "
+        f"coefficients, float64, 16 regions x {T_h}+{H} days, 8 eps): "
+        f"{worst}; {int((~calm).sum())} of {calm.numel()} sweep lanes reach "
+        f"cond(P-) >= {ILL_COND:.0e} (max {float(cond.max()):.2e}); "
+        f"prescriptions differ on {int(u_diff.sum())} lanes "
+        f"({float((u_k != u_c).double().mean()):.4f} of the cells; "
+        f"{int((u_diff & calm).sum())} well-conditioned); fronts of the "
+        f"{int(calm_regions.sum())} regions with only well-conditioned "
+        f"lanes equal={front_same}; {walls}")
+    check(not bool((u_diff & calm).any()) and front_same,
+          "vmap reference: a well-conditioned sweep lane differs")
+    hi = to_tensor(NPI_MAXES_DEFAULT, f64, cpu)
+    for name, u in (("card", u_k), ("cpu", u_c)):
+        check(bool(((u == 0) | (u == hi)).all()),
+              f"vmap reference: a {name} prescription is not bang-bang")
+    check(all(bool(torch.isfinite(r.pareto[f]).all())
+              for r in (k, c) for f in ("J0", "J1")),
+          "vmap reference: sweep costs not finite")
+
+
+def vmap_sweep_check(device):
+    """The sweep's 6-state EKS on the generic core (pipelines.core.
+    sweep_eks_vmap's system and options) on the card against the CPU,
+    float64, on the per-capita inputs of the ekf6 phase (300 lanes, T = 532;
+    without and with active control), where every prior covariance stays
+    below cond 1e8: prescriptions equal, the rest at the costate bound
+    VMAP_COSTATE_TOL, both smoother gains."""
+    from epidemicmodeling_torch.models import si_alpha_costate_ekf_system
+    from epidemicmodeling_torch.ops.ekf import ekf_smoother
+    for active in (False, True):
+        d = per_capita_case(active)
+        t = lambda a: torch.movedim(torch.from_numpy(
+            np.asarray(a, np.float64)), -1, 0)[:300]
+        args = dict(u=torch.from_numpy(np.asarray(d["u"], np.float64)
+                                       ).permute(2, 0, 1)[:300],
+                    x=t(d["x"]), params={k: t(v) for k, v in
+                                         d["params"].items()},
+                    s_init=t(d["s_init"]), Ps_init=t(d["Ps_init"]),
+                    s_final=t(d["s_final"]), Ps_final=t(d["Ps_final"]),
+                    Q=t(d["Q"]), R=t(d["Rv"]))
+        for gain in ("pinv", "solve"):
+            res = []
+            for dev in (device, torch.device("cpu")):
+                a = {k: ({kk: vv.to(dev) for kk, vv in v.items()}
+                         if isinstance(v, dict) else v.to(dev))
+                     for k, v in args.items()}
+                res.append(ekf_smoother(
+                    si_alpha_costate_ekf_system(), a["u"], a["x"],
+                    a["params"], a["s_init"], a["Ps_init"], a["s_final"],
+                    a["Ps_final"], Q=a["Q"], R=a["R"], gamma_discount=0.995,
+                    smoother_gain=gain, outputs="full"))
+            g, c = res
+            cond = float(max_cond(c.P_minus).max())
+            ratios = {f: close_ratio(getattr(g, f), getattr(c, f),
+                                     VMAP_COSTATE_TOL)
+                      for f in ("s_plus", "s_smooth", "P_smooth")}
+            same = torch.equal(g.u_opt_smooth.cpu(), c.u_opt_smooth)
+            share = float((c.u_opt_smooth[:, T_HIST:-1] != 0).double().mean())
+            log(f"vmap sweep EKS, per-capita{', control active' if active else ''}"
+                f" ({gain}; card vs CPU, float64, 300 lanes, T={c.s_plus.shape[1]}):"
+                f" max cond(P-) {cond:.2e}; prescriptions equal={same} "
+                f"(u_max share {share:.4f}); " + " ".join(
+                    f"{f}={r:.3e}" for f, r in ratios.items())
+                + " of the bound")
+            check(cond < 1e8 and same and max(ratios.values()) <= 1.0,
+                  f"vmap sweep EKS ({gain}, active={active}): card and CPU "
+                  "differ")
+
+
+def max_cond(P_minus):
+    """The largest condition number, per lane (...), of the finite prior
+    covariances P-(t), t >= 1, of a stack (..., T, m, m): the matrices the
+    smoother gains invert. A gain's relative error on a card against a CPU
+    is about cond * eps (the pinv's, and MATLAB's cutoff is decided within
+    the SVD's own error, pinv_ranks_agree)."""
+    P = P_minus[..., 1:, :, :]
+    fin = torch.isfinite(P).all(dim=-1).all(dim=-1)
+    eye = torch.eye(P.shape[-1], dtype=P.dtype, device=P.device)
+    s = torch.linalg.svdvals(torch.where(fin[..., None, None], P, eye))
+    return (s[..., 0] / s[..., -1]).amax(dim=-1)
+
+
+def sweep_max_cond(cfg, bt, trained, bf, eps, T_hist):
+    """max_cond of every (epsilon, region) lane of run_pipeline's sweep (its
+    6-state EKS rerun on the CPU, float64, with the covariances kept),
+    (E, R)."""
+    cpu, f64 = torch.device("cpu"), torch.float64
+    bt_d, _, _ = device_batch(bt, f64, cpu)
+    bf_d, _, _ = device_batch(bf, f64, cpu)
+    prep = pareto_prep(cfg, bf_d, trained, region_init(bt_d, cfg, f64, cpu),
+                       WEIGHTS, MINS, NPI_MAXES_DEFAULT, T_hist, f64, cpu)
+    R = bf_d.observations.shape[0]
+    out = []
+    for e in torch.as_tensor(eps, dtype=f64).split(cfg.pareto_chunk):
+        res = sweep_eks_vmap(cfg, sweep_lane_inputs(prep, e), "full")
+        out.append(max_cond(res.P_minus).reshape(len(e), R))
+    return torch.cat(out)
+
+
+def pinv_ranks_agree(got, ref, A):
+    """(kept ranks equal, error within bound) of two _matlab_pinv results
+    of A. Where the ranks differ, every singular value between them must
+    lie within the SVD's own error, max(size) eps sigma_max (= the cutoff
+    tol), of the cutoff: there no SVD decides the kept set (MATLAB's rule
+    applied to singular values computed to that error). Where they agree,
+    the values must agree to kappa * 1e-12 of their scale, kappa =
+    sigma_max / (smallest kept sigma)."""
+    s = torch.linalg.svdvals(A)
+    tol = max(A.shape) * float(torch.nextafter(s[0], torch.tensor(
+        float("inf"), dtype=s.dtype)) - s[0])
+    rank = sorted(round(float(torch.trace(p @ A))) for p in (got, ref))
+    if rank[0] != rank[1]:
+        between = s[rank[0]:rank[1]]
+        return False, bool((torch.abs(between - tol) <= tol).all())
+    kappa = float(s[0] / s[rank[0] - 1])
+    err = float(torch.abs(got - ref).max()
+                / max(float(torch.abs(ref).max()), 1.0))
+    return True, err <= max(kappa * 1e-12, 1e-9)
+
+
+def pinv_check(device):
+    """MATLAB's pinv cutoff on the card: the knife-edge inputs of
+    tests/test_matlab_pinv.py (cond 1e6-1e16, float64) against the CPU
+    (pinv_ranks_agree); then the time of one pinv over a sweep chunk's
+    gains (531 steps x 5,875 lanes of 6 x 6, float32), beside the SVD
+    alone."""
+    rng = np.random.default_rng(1)
+    same = []
+    for cond in (1e6, 1e14, 1e15, 1e16):
+        for k in range(5):
+            q, _ = np.linalg.qr(rng.standard_normal((6, 6)))
+            A = torch.from_numpy(
+                (q * np.logspace(0, -np.log10(cond), 6)) @ q.T)
+            agree, ok = pinv_ranks_agree(_matlab_pinv(A.to(device)).cpu(),
+                                         _matlab_pinv(A), A)
+            check(ok, f"pinv cond {cond:.0e} #{k}: card and CPU differ "
+                      "outside the SVD's error")
+            if not agree:
+                log(f"pinv cond {cond:.0e} #{k}: the card keeps another "
+                    "rank than the CPU (a singular value within the "
+                    "SVD's error of the cutoff)")
+            same.append(agree)
+    log(f"pinv knife-edge (card vs CPU, float64): {sum(same)} of "
+        f"{len(same)} inputs keep the same rank, all within their bounds")
+    n = (T_HIST + HORIZON - 1) * CHUNK * R_REGIONS
+    M = torch.randn(n, 6, 6, device=device, dtype=F32)
+    M = M @ M.transpose(-1, -2) + 1e-3 * torch.eye(6, device=device)
+    t0 = time.perf_counter()
+    _matlab_pinv(M)
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    pinv_ms = cuda_ms(lambda: _matlab_pinv(M), reps=3)
+    svd_ms = cuda_ms(lambda: torch.linalg.svd(M), reps=3)
+    log(f"pinv of {n} 6x6 float32 matrices (one sweep chunk's gains): "
+        f"{pinv_ms:.3f} ms (first call {cold * 1e3:.3f} ms), of which the "
+        f"SVD {svd_ms:.3f} ms")
+
+
+def vmap_backtest(device, bt):
+    """forecast_quality_assessment(backend="vmap") at 235 regions x 60
+    starts x 60 days ahead, T = 440, cold then warm: no ekf3 launch; its
+    error curves against the pallas backtest's at VMAP_BACKTEST_BOUND."""
+    T = bt.observations.shape[1]
+    run = lambda cfg: forecast_quality_assessment(
+        bt, MINS, NPI_MAXES_DEFAULT, T - BT_STARTS, BT_STARTS, BT_AHEAD, cfg,
+        dtype=F32)
+    for tag in ("cold", "warm"):
+        reset_launches()
+        t0 = time.perf_counter()
+        res = run(PipelineConfig(backend="vmap"))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = read_launches()
+        log(f"vmap backtest {tag}: {R_REGIONS} regions x {BT_STARTS} starts "
+            f"x {BT_AHEAD} days ahead, T={T}: wall={wall:.3f}s "
+            f"filter-days/s={R_REGIONS * BT_STARTS * T / wall:.4e} "
+            f"launches={n}")
+        check(n["ekf3"] == 0, f"vmap backtest: {n['ekf3']} ekf3 launches")
+    ref = run(PipelineConfig(backend="pallas", smoother_gain="solve"))
+    errs = {}
+    for f in ("mean_error_smooth", "median_error_smooth"):
+        a, b = getattr(res, f), getattr(ref, f)
+        same = torch.equal(torch.isfinite(a), torch.isfinite(b))
+        ok = torch.isfinite(b)
+        errs[f] = (float((torch.abs(a - b) / (torch.abs(b) + 1))[ok].max())
+                   if same else float("inf"))
+    log("vmap backtest against the pallas backtest: " + " ".join(
+        f"{f}={v:.3e}" for f, v in errs.items())
+        + f" (bound {VMAP_BACKTEST_BOUND})")
+    for f, v in errs.items():
+        check(v <= VMAP_BACKTEST_BOUND, f"vmap backtest: {f} {v:.3e}")
+    return wall
+
+
+def vmap_regressions(device, bt):
+    """The train stage at the XPRIZE width with LASSO (50 folds) and with
+    the element-wise robust fits, on the generic core: its wall, finite
+    coefficients (non-negative slopes for the element-wise fits), and
+    LASSO's sweeps and host syncs over the stage's two lasso_cv calls."""
+    counts = {}
+    real = core.lasso_cv
+    core.lasso_cv = lambda *a, **k: real(*a, counts=counts, **k)
+    try:
+        for reg in ("LASSO", "NONNEGATIVELS-ELEMENT-WISE"):
+            cfg = PipelineConfig(backend="vmap", regression_type=reg)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr = train_regions(bt, MINS, NPI_MAXES_DEFAULT, T_HIST, cfg,
+                               dtype=F32, device=device).trained
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            check(all(bool(torch.isfinite(t).all())
+                      for t in (tr.a1, tr.b1, tr.a2, tr.b2)),
+                  f"train {reg}: a coefficient is not finite")
+            if reg != "LASSO":
+                check(bool((tr.a2 >= 0).all()), f"train {reg}: a2 < 0")
+            log(f"vmap train {reg} at {R_REGIONS} regions x {T_HIST} days: "
+                f"wall={wall:.3f}s "
+                + (f"lasso_cv {counts}" if reg == "LASSO" else
+                   "(no host sync in the regression)"))
+    finally:
+        core.lasso_cv = real
+
+
+def vmap_phase(device, bt, bf, actual):
+    """Slice 4: the generic EKF/EKS core ("vmap" backend) and the LASSO and
+    element-wise regressions, through the user's entry points."""
+    vmap_reference_check(device)
+    vmap_sweep_check(device)
+    pinv_check(device)
+    cfg = PipelineConfig(backend="vmap", pareto_chunk=CHUNK,
+                         num_monte_carlo=N_MC)
+    res, wall, launches = xprize_run(device, bt, bf, actual, cfg,
+                                     epsilon_grid(N_EPS).numpy(),
+                                     "vmap main path", profile=False)
+    check(launches["ekf3"] == 0 and launches["ekf6"] == 0,
+          f"vmap main path: EKS kernel launches {launches}")
+    # recording the full run's launches (about ten sweep chunks') under the
+    # profiler outlasts the smoke's time limit: profile one sweep chunk, the
+    # Pareto stage's unit
+    bt_d, _, _ = device_batch(bt, F32, device)
+    init = region_init(bt_d, cfg, F32, device)
+
+    def chunk():
+        pareto_prescribe(bf, res.trained, init, res.s_hist,
+                         epsilon_grid(N_EPS).numpy()[:CHUNK], WEIGHTS, MINS,
+                         NPI_MAXES_DEFAULT, T_HIST, cfg, dtype=F32,
+                         device=device)
+        torch.cuda.synchronize()
+
+    chunk()
+    t0 = time.perf_counter()
+    chunk()
+    chunk_wall = time.perf_counter() - t0
+    log(f"vmap sweep chunk ({CHUNK} eps x {R_REGIONS} regions): warm wall "
+        f"{chunk_wall:.3f}s")
+    device_time(chunk, chunk_wall)
+    ref = train_regions(bt, MINS, NPI_MAXES_DEFAULT, T_HIST,
+                        PipelineConfig(backend="pallas"), dtype=F32,
+                        device=device).trained
+    errs = {k: scaled_err(getattr(res.trained, k), getattr(ref, k))
+            for k in ("a1", "b1", "a2", "b2")}
+    log("vmap train against the pallas train (float32): " + " ".join(
+        f"{k}={v:.3e}" for k, v in errs.items())
+        + f" (bound {VMAP_TRAIN_BOUND})")
+    for k, v in errs.items():
+        check(v <= VMAP_TRAIN_BOUND, f"vmap train: {k} {v:.3e}")
+    vmap_backtest(device, bt)
+    vmap_regressions(device, bt)
+    return wall
+
+
 def kernel_entries(measured, xprize_launches, stencil_cases, sim_launches,
                    pairwise_cases, cli_launches, backtest):
     """One entry per kernel for the JSON line: its launches on its path's
@@ -1349,6 +1778,9 @@ def main():
     # the XPRIZE product's own entry point and the backtest (slice 3)
     cli_launches, _ = cli_phase(device)
     backtest, _ = backtest_phase(device, bt)
+
+    # the generic EKF/EKS core and the regressions (slice 4)
+    vmap_phase(device, bt, bf, actual)
 
     kernels = kernel_entries(measured, xprize_launches, stencil_cases,
                              sim_launches, pairwise_cases, cli_launches,

@@ -4,12 +4,14 @@ The JAX package beside it is the reference: the tests run both on the same
 inputs and hold each module of the port against its counterpart. Module
 names mirror the JAX package's, so each counterpart is easy to find.
 
-Three slices are ported. The XPRIZE product runs from its own entry
+Four slices are ported. The XPRIZE product runs from its own entry
 points: the CLI (python -m epidemicmodeling_torch.pipelines.xprize_cli) and
 pipelines.train_predict_prescribe read the OxCGRT CSVs without pandas and
-run pipelines.run_pipeline on the batch-last backends with the two EKF/EKS
-kernels, writing the XPRIZE prescriptions and predictions CSVs and .npz or
-.mat checkpoints; pipelines.forecast_quality_assessment, the paper's
+run pipelines.run_pipeline, on the batch-last backends with the two EKF/EKS
+kernels or on the "vmap" backend (the default) with the generic EKF/EKS
+core (ops/ekf.py, tensor ops, MATLAB's pinv smoother gain) and any of the
+three regressions, writing the XPRIZE prescriptions and predictions CSVs
+and .npz or .mat checkpoints; pipelines.forecast_quality_assessment, the paper's
 backtest, runs every (region, holdout start) filter in one ekf3 call. The
 spatial stack (spatial.diffusion_rollout, spatial.walkers.walking_sources_sim,
 spatial.population_motion_sim) runs with the diffusion-stencil and
@@ -23,9 +25,12 @@ Subpackages
 pipelines    config, batched stages, run_pipeline, the CSV entry point and
              CLI, checkpoint files, the forecast-quality backtest
 spatial      diffusion CA, random-walk sources, agent sim with social forces
-ops          the batch-last EKF/EKS core and the CUDA kernels
-models       batch-last SI-alpha system equations, the rollout step
-regression   batched NNLS with intercept refinement
+ops          the generic and the batch-last EKF/EKS cores, the CUDA kernels
+models       SI-alpha, costate and time-reversed systems (generic and
+             batch-last), the rollout step
+regression   batched NNLS with intercept refinement, LASSO, element-wise
+             robust fits
+rt           the exponential-fit EKF/EKS Rt estimator
 control      NPI cost, epsilon grid, Pareto front, Monte-Carlo schedules
 data         pandas-free OxCGRT loaders and XPRIZE CSV writers,
              NumPy-only preprocessing, synthetic regions and CSVs

@@ -1,6 +1,12 @@
-from .si_alpha import si_alpha_step_fields
+from .base import EKFSystem
+from .si_alpha import si_alpha_step_fields, si_alpha_ekf_system
+from .costate import si_alpha_costate_ekf_system
+from .backward import (si_alpha_backward_ekf_system,
+                       si_alpha_costate_backward_ekf_system)
 from .batch_last import (si_alpha_ekf_system_bl,
                          si_alpha_costate_ekf_system_bl)
 
-__all__ = ["si_alpha_step_fields", "si_alpha_ekf_system_bl",
+__all__ = ["EKFSystem", "si_alpha_step_fields", "si_alpha_ekf_system",
+           "si_alpha_costate_ekf_system", "si_alpha_backward_ekf_system",
+           "si_alpha_costate_backward_ekf_system", "si_alpha_ekf_system_bl",
            "si_alpha_costate_ekf_system_bl"]

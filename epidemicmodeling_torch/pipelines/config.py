@@ -6,12 +6,15 @@ gathered into one dataclass. Field for field the same class as
 epidemicmodeling_tpu.pipelines.config.PipelineConfig (a test pins the names
 and defaults), so one configuration drives both packages.
 
-The PyTorch port runs the batch-last path only, for "lanes" and "pallas"
-alike: the device decides between the hand-written CUDA kernels (CUDA
-tensors) and their plain versions (CPU tensors). "vmap" and order != 1
-raise NotImplementedError (ROADMAP A11). With stochastic_forecast the
-rollouts draw their noise from a torch.Generator, or take the draws
-explicitly (pipelines.core.forecast_noise).
+"lanes" and "pallas" both run the batch-last path: the device decides
+between the hand-written CUDA kernels (CUDA tensors) and their plain
+versions (CPU tensors). "vmap", the default, runs the generic EKF/EKS core
+(ops/ekf.py) with the MATLAB-exact pinv smoother gain, on either device.
+order != 1 raises a TypeError (the SI-alpha systems define no Hessian
+terms, in the JAX package too). With lasso_cv_shuffle_seed >= 0 the LASSO
+folds follow a torch.randperm draw from that seed, not jax.random's. With
+stochastic_forecast the rollouts draw their noise from a torch.Generator,
+or take the draws explicitly (pipelines.core.forecast_noise).
 """
 
 from __future__ import annotations
@@ -91,8 +94,8 @@ class PipelineConfig:
                                             # "vmap" backend only: the
                                             # lanes/pallas paths ALWAYS use
                                             # the Cholesky solve gain
-    backend: str = "vmap"                   # "vmap" (generic core; not
-                                            # ported) | "lanes" | "pallas"
+    backend: str = "vmap"                   # "vmap" (generic core, tensor
+                                            # ops) | "lanes" | "pallas"
                                             # (both the batch-last path: the
                                             # CUDA kernels of ops/cuda/ on a
                                             # card; NEWCASES or TOTALCASES

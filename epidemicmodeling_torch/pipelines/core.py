@@ -10,8 +10,11 @@ B = pareto_chunk * R lanes, epsilon-major (lane = e * R + r).
 Backends (cfg.backend): "lanes" and "pallas" both take this batch-last
 path, and the device decides what runs the EKF/EKS: the hand-written CUDA
 kernels (ops/cuda/) for CUDA tensors, their plain versions (the batch-last
-core, ops/ekf_bl.py) for CPU tensors. The device is the one the batch
-tensors live on (see device_batch).
+core, ops/ekf_bl.py) for CPU tensors. "vmap" runs the generic EKF/EKS core
+(ops/ekf.py, tensor ops on either device) over the same lanes, with
+cfg.smoother_gain (the MATLAB-exact "pinv" by default) and any
+cfg.beta_ekf; it launches no hand-written kernel. The device is the one the
+batch tensors live on (see device_batch).
 """
 
 from __future__ import annotations
@@ -23,10 +26,13 @@ import torch
 
 from ..control import npi_cost, random_npi_schedules
 from ..models.batch_last import _dot_p
-from ..models.si_alpha import si_alpha_step_fields
+from ..models.costate import si_alpha_costate_ekf_system
+from ..models.si_alpha import si_alpha_ekf_system, si_alpha_step_fields
 from ..ops.cuda import ekf6_kernel
 from ..ops.cuda.ekf3_kernel import ekf3_lanes, rho_from_priors
-from ..regression import nnls_with_intercept
+from ..ops.ekf import ekf_smoother
+from ..regression import (lasso_cv, nnls_with_intercept,
+                          robust_affine_fit_elementwise)
 from ..utils.device import resolve_device
 from ..utils.math import clip_lo_hi
 from .config import PipelineConfig
@@ -88,18 +94,23 @@ def to_tensor(a, dtype=None, device=None) -> torch.Tensor:
     return torch.as_tensor(a, dtype=dtype, device=device)
 
 
+REGRESSION_TYPES = ("NONNEGATIVELS", "LASSO", "NONNEGATIVELS-ELEMENT-WISE")
+
+
 def check_config(cfg: PipelineConfig) -> None:
-    """Refuse what this port does not run yet, before any work is done."""
-    if cfg.backend == "vmap":
-        raise NotImplementedError(
-            "backend='vmap' (the generic EKF core, epidemicmodeling_tpu/ops/"
-            "ekf.py) is not ported yet (ROADMAP A11); use 'lanes' or "
-            "'pallas'")
-    if cfg.backend not in ("lanes", "pallas"):
+    """Refuse a configuration that cannot run, before any work is done."""
+    if cfg.backend not in ("vmap", "lanes", "pallas"):
         raise ValueError(f"unknown backend {cfg.backend!r}")
     if cfg.order != 1:
-        raise NotImplementedError("order != 1 needs the generic EKF core "
-                                  "(ROADMAP A11)")
+        # the SI-alpha systems define no Hessian terms: the JAX package
+        # fails on them too (it calls the missing obs_hessian_terms)
+        raise TypeError(f"order={cfg.order} needs second-order terms, and "
+                        "the SI-alpha systems define no obs_hessian_terms "
+                        "or state_hessian_terms")
+    if cfg.regression_type not in REGRESSION_TYPES:
+        raise ValueError(f"unknown regression_type {cfg.regression_type!r}")
+    if cfg.smoother_gain not in ("pinv", "solve"):
+        raise ValueError(f"unknown smoother_gain {cfg.smoother_gain!r}")
     if cfg.observation_type not in ("NEWCASES", "TOTALCASES"):
         raise ValueError(
             f"unknown observation type {cfg.observation_type!r}")
@@ -218,8 +229,16 @@ def ekf3_lane_inputs(u, obs, params, R_v, init):
 
 def _run_ekf3(cfg, u, obs, params, R_v, init) -> EKF3Result:
     """3-state EKF/EKS over all regions: u (R, T, P), obs and R_v (R, T).
-    The CUDA kernel on a card (its plain version on the CPU); rho from the
-    stored priors."""
+    "vmap": the generic core, one filter a region. Otherwise the CUDA kernel
+    on a card (its plain version on the CPU), rho from the stored priors."""
+    if cfg.backend == "vmap":
+        res = ekf_smoother(
+            si_alpha_ekf_system(cfg.observation_type), u, obs, params,
+            init.s_init, init.Ps_init, Q=init.Q, R=R_v, beta=cfg.beta_ekf,
+            gamma_discount=cfg.gamma_ekf,
+            inv_monitor_len=cfg.inv_monitor_len, order=cfg.order,
+            smoother_gain=cfg.smoother_gain)
+        return EKF3Result(res.s_smooth, res.rho[..., 0, 0])
     u_bl, x_bl, Rv_bl, params_bl, Q_bl, s0_bl, Ps0_bl = ekf3_lane_inputs(
         u, obs, params, R_v, init)
     ssm, _, sm = ekf3_lanes(
@@ -236,9 +255,21 @@ def _regress(cfg: PipelineConfig, x_data, y_data):
     if cfg.regression_type == "NONNEGATIVELS":
         return nnls_with_intercept(x_data, y_data,
                                    iterations=cfg.nonneg_iterations)
-    raise NotImplementedError(
-        f"regression_type={cfg.regression_type!r} is not ported yet "
-        "(ROADMAP A13); use 'NONNEGATIVELS'")
+    if cfg.regression_type == "LASSO":
+        # MATLAB's cvpartition shuffles the folds (:255 lasso(...,'CV',50))
+        # when a seed is configured: one permutation shared by the regions,
+        # drawn from torch's generator (jax.random's cannot be reproduced);
+        # the default is the deterministic interleave i mod K
+        perm = None
+        if cfg.lasso_cv_shuffle_seed >= 0:
+            perm = torch.randperm(x_data.shape[-2], generator=torch.Generator(
+                ).manual_seed(cfg.lasso_cv_shuffle_seed))
+        coef, intercept, _ = lasso_cv(x_data, y_data,
+                                      n_folds=cfg.lasso_cv_folds, perm=perm)
+        return coef, intercept
+    if cfg.regression_type == "NONNEGATIVELS-ELEMENT-WISE":
+        return robust_affine_fit_elementwise(x_data, y_data)
+    raise ValueError(f"unknown regression_type {cfg.regression_type!r}")
 
 
 def train_regions(batch, npi_mins, npi_maxes, num_regression_days,
@@ -457,10 +488,27 @@ def sweep_lane_inputs(prep, eps_chunk):
     return out
 
 
-def _sweep_chunk_lanes_body(eps_chunk, prep, s_hist, *, cfg, T_hist, Ec,
+def sweep_eks_vmap(cfg, lanes, outputs="light"):
+    """The 6-state optimal-control EKS of a sweep chunk on the generic core
+    (epidemicmodeling_tpu/pipelines/core.py:533-569): the batch-last lanes
+    of sweep_lane_inputs as one batch of Bl filters. Returns its EKFResult
+    (lanes first)."""
+    first = lambda a: torch.movedim(a, -1, 0)
+    return ekf_smoother(
+        si_alpha_costate_ekf_system(cfg.observation_type), first(lanes["u"]),
+        lanes["x"].T, {k: first(v) for k, v in lanes["params"].items()},
+        lanes["s_init"].T, first(lanes["Ps_init"]),
+        lanes["s_final"].T, first(lanes["Ps_final"]),
+        Q=first(lanes["Q"]), R=lanes["Rv"].T, beta=cfg.beta_ekf,
+        gamma_discount=cfg.gamma_ekf, inv_monitor_len=cfg.inv_monitor_len,
+        order=cfg.order, smoother_gain=cfg.smoother_gain, outputs=outputs)
+
+
+def _sweep_chunk_body(eps_chunk, prep, s_hist, *, cfg, T_hist, Ec,
                             noise=None):
     """One epsilon chunk of the Pareto sweep on Ec * R lanes (epsilon-major,
-    lane = e * R + r): the 6-state EKS with NaN future inputs, the rollout of
+    lane = e * R + r): the 6-state EKS with NaN future inputs (the ekf6
+    kernel, or on "vmap" the generic core, sweep_eks_vmap), the rollout of
     the prescribed schedule from the end-of-history state, and the costs.
     J1 averages w * u over ALL rows of the smoothed schedule: the history,
     the prescription, and the smoother's zero last row (core.py:690).
@@ -477,13 +525,16 @@ def _sweep_chunk_lanes_body(eps_chunk, prep, s_hist, *, cfg, T_hist, Ec,
     lanes = sweep_lane_inputs(prep, eps_chunk)
     rp = lanes["params"]
 
-    # the kernel runs float32 on a card; its plain version runs the
-    # caller's dtype on the CPU
-    kdt = torch.float32 if obs.is_cuda else fdtype
-    _, u_sm, _ = ekf6_kernel.ekf6(
-        *ekf6_kernel.pack_ekf6_args(lanes, kdt),
-        gamma_discount=cfg.gamma_ekf, obs_type=cfg.observation_type)
-    u_sm = u_sm.to(fdtype)                                # (T, P, Bl)
+    if cfg.backend == "vmap":
+        u_sm = sweep_eks_vmap(cfg, lanes).u_opt_smooth.permute(1, 2, 0)
+    else:
+        # the kernel runs float32 on a card; its plain version runs the
+        # caller's dtype on the CPU
+        kdt = torch.float32 if obs.is_cuda else fdtype
+        _, u_sm, _ = ekf6_kernel.ekf6(
+            *ekf6_kernel.pack_ekf6_args(lanes, kdt),
+            gamma_discount=cfg.gamma_ekf, obs_type=cfg.observation_type)
+        u_sm = u_sm.to(fdtype)                            # (T, P, Bl)
 
     u_presc_bl = u_sm[T_hist:]                            # (H, P, Bl)
     s_hist_bl = _tile_lanes(s_hist, Ec)                   # (T_hist, 3, Bl)
@@ -564,17 +615,25 @@ def pareto_prescribe(batch_full, trained: TrainedRegionParams,
         if noise is not None and E_pad > E:
             # the pad epsilons' rollouts are dropped: any draw will do
             noise = torch.cat([noise, noise.new_zeros((E_pad - E, R, H, 3))])
-    outs = [_sweep_chunk_lanes_body(
-                eps_padded[c0:c0 + chunk], prep, s_hist, cfg=cfg,
-                T_hist=T_hist, Ec=chunk,
-                noise=(noise[c0:c0 + chunk] if noise is not None else
-                       forecast_noise(cfg, (chunk, R, H, 3), fd, dev,
-                                      generator)))
-            for c0 in range(0, E_pad, chunk)]
-    cat = lambda idx: (None if outs[0][idx] is None else
-                       torch.cat([o[idx] for o in outs], dim=0)[:E])
-    return {"J0": cat(0), "J1": cat(1), "s": cat(2), "i": cat(3),
-            "alpha": cat(4), "u_prescribed": cat(5),
+    # each chunk's outputs go into buffers allocated once for all E_pad
+    # epsilons (no per-chunk list and final concatenate)
+    bufs = None
+    for c0 in range(0, E_pad, chunk):
+        out = _sweep_chunk_body(
+            eps_padded[c0:c0 + chunk], prep, s_hist, cfg=cfg, T_hist=T_hist,
+            Ec=chunk,
+            noise=(noise[c0:c0 + chunk] if noise is not None else
+                   forecast_noise(cfg, (chunk, R, H, 3), fd, dev,
+                                  generator)))
+        if bufs is None:
+            bufs = [None if o is None else o.new_empty((E_pad,) + o.shape[1:])
+                    for o in out]
+        for buf, o in zip(bufs, out):
+            if buf is not None:
+                buf[c0:c0 + chunk] = o
+    get = lambda idx: None if bufs[idx] is None else bufs[idx][:E]
+    return {"J0": get(0), "J1": get(1), "s": get(2), "i": get(3),
+            "alpha": get(4), "u_prescribed": get(5),
             "epsilon": to_tensor(eps, fd, dev)}
 
 

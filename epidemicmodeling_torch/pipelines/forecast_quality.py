@@ -12,9 +12,11 @@ testScripts/testIEEEJSTSP2021ArticleResults.m):
 - aggregate mean / median error curves over the start days (:423-429).
 
 The reference reruns a full EKF per (region, start) serially; here the
-(region, start) grid is B = R * S batch-last lanes (lane = r * S + s), so
-one ekf3 call runs them all: the CUDA kernel (B1) on a card, its plain
-version on the CPU.
+(region, start) grid is B = R * S lanes (lane = r * S + s), so one call runs
+them all: on the "lanes"/"pallas" backends one ekf3 call (the CUDA kernel B1
+on a card, its plain version on the CPU), on "vmap" one batch of the
+generic EKF/EKS core with outputs "light"
+(epidemicmodeling_tpu/pipelines/forecast_quality.py:228).
 """
 
 from __future__ import annotations
@@ -23,7 +25,9 @@ from typing import NamedTuple
 
 import torch
 
+from ..models.si_alpha import si_alpha_ekf_system
 from ..ops.cuda.ekf3_kernel import ekf3_lanes
+from ..ops.ekf import ekf_smoother
 from .config import PipelineConfig
 from .core import (check_config, device_batch, stage_params, to_tensor,
                    train_regions)
@@ -53,8 +57,7 @@ def forecast_quality_assessment(batch, npi_mins, npi_maxes,
     the last ``num_forecast_days`` days serve as holdout starts, and
     training uses the window up to T - num_forecast_days. device / dtype as
     in run_pipeline: the CUDA card unless the batch's tensors lie elsewhere
-    or device="cpu" is passed. backend "vmap" (the generic core) and mesh=
-    are not ported (ROADMAP A11, A18)."""
+    or device="cpu" is passed. mesh= is not ported (ROADMAP A18)."""
     check_config(cfg)
     if mesh is not None:
         raise NotImplementedError(
@@ -84,8 +87,9 @@ def forecast_quality_assessment(batch, npi_mins, npi_maxes,
     pop = to_tensor(batch.population, fd, dev)
     truth = to_tensor(batch.new_cases_norm, fd, dev) * pop[:, None]
 
-    s_plus, s_smooth = _run_all_lanes(cfg, batch.observations, batch.npis,
-                                      batch.obs_noise_var, params, init, S)
+    run_all = _run_all_vmap if cfg.backend == "vmap" else _run_all_lanes
+    s_plus, s_smooth = run_all(cfg, batch.observations, batch.npis,
+                               batch.obs_noise_var, params, init, S)
     err_plus, err_smooth = _errors_from_states(s_plus, s_smooth, truth, pop,
                                                H)
 
@@ -134,6 +138,24 @@ def _run_all_lanes(cfg, obs, npis, R_v, params, init, S):
         gamma_discount=cfg.gamma_ekf, obs_type=cfg.observation_type)
     back = lambda a: torch.movedim(a, -1, 0).reshape(R, S, T, 3)
     return back(sp_bl), back(ss_bl)
+
+
+def _run_all_vmap(cfg, obs, npis, R_v, params, init, S):
+    """Every (region, start) filter as one batch of the generic core, with
+    cfg.smoother_gain and outputs "light". Returns the filtered and smoothed
+    states, each (R, S, T, 3)."""
+    R, T = obs.shape
+    u, x, Rv, params_bl, Q, s0, Ps0 = backtest_lane_inputs(
+        obs, npis, R_v, params, init, S)
+    first = lambda a: torch.movedim(a, -1, 0)
+    res = ekf_smoother(
+        si_alpha_ekf_system(cfg.observation_type), first(u), x.T,
+        {k: first(v) for k, v in params_bl.items()}, s0.T, first(Ps0),
+        Q=first(Q), R=Rv.T, beta=cfg.beta_ekf, gamma_discount=cfg.gamma_ekf,
+        inv_monitor_len=cfg.inv_monitor_len, order=cfg.order,
+        smoother_gain=cfg.smoother_gain, outputs="light")
+    back = lambda a: a.reshape(R, S, T, 3)
+    return back(res.s_plus), back(res.s_smooth)
 
 
 def _errors_from_states(s_plus, s_smooth, truth, pop, H):

@@ -267,9 +267,10 @@ def run_pipeline(batch_train, batch_full, actual_npis, T_hist, npi_weights,
     device / dtype: where and in which precision everything runs. device
     None: the device the batch's tensors already lie on, else the CUDA card
     (a RuntimeError on a machine without one; pass device="cpu" for the
-    CPU). dtype None: the batch's, else torch's default dtype. On a CUDA
-    device the EKS stages run the hand-written kernels; on the CPU, their
-    plain versions.
+    CPU). dtype None: the batch's, else torch's default dtype. On the
+    "lanes"/"pallas" backends the EKS stages run the hand-written kernels
+    on a CUDA device and their plain versions on the CPU; on "vmap" they
+    run the generic EKF/EKS core (tensor ops) on either.
     trained: optional pre-trained TrainedRegionParams (prescribe from a
     checkpoint without retraining, testScripts/testPrescribeXPRIZE01.m);
     rows are re-aligned to the batch's regions by name.

@@ -77,7 +77,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
                     choices=["vmap", "lanes", "pallas"],
                     help="compute backend: lanes and pallas both run the "
                          "batch-last path (the CUDA kernels on a card); "
-                         "vmap is not ported")
+                         "vmap runs the generic EKF/EKS core (tensor ops, "
+                         "the MATLAB-exact pinv smoother gain)")
     ap.add_argument("--pareto-chunk", type=int, default=32)
     ap.add_argument("--observation-type", default="NEWCASES",
                     choices=["NEWCASES", "TOTALCASES"],

@@ -1,4 +1,4 @@
 from .device import resolve_device
-from .math import clip_lo_hi, clip_hi_lo
+from .math import clip_lo_hi, clip_hi_lo, symmetrize
 
-__all__ = ["clip_lo_hi", "clip_hi_lo", "resolve_device"]
+__all__ = ["clip_lo_hi", "clip_hi_lo", "symmetrize", "resolve_device"]

@@ -5,7 +5,8 @@ regions, one of them with a zero-case tail so that some per-day errors are
 inf) goes through the JAX forecast_quality_assessment (backend "lanes",
 float64 on the CPU) and the port's (float64 on the CPU, both batch-last
 backends: every (region, start) lane in one call of the ekf3 kernel's plain
-version). Tolerance: rtol 1e-9 / atol 1e-12 (the golden's), with identical
+version), and through both packages' "vmap" backend (the generic core).
+Tolerance: rtol 1e-9 / atol 1e-12 (the golden's), with identical
 non-finite patterns.
 """
 
@@ -92,6 +93,35 @@ def test_backtest_matches_jax(batch, jax_results, backend, shape):
     assert np.isfinite(got.mean_error_smooth.numpy()[[0, 2]]).all()
 
 
+@pytest.fixture(scope="module")
+def jax_vmap_results(batch):
+    return {s: jax_backtest(batch, cfg=JaxConfig(), **_kw(s)) for s in SHAPES}
+
+
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_backtest_vmap_matches_jax(batch, jax_vmap_results, shape,
+                                   monkeypatch):
+    """backend "vmap" (the default config: the generic core, the pinv
+    smoother gain) against the JAX package's "vmap" backtest: every
+    (region, start) filter in one batch of the core, no ekf3 call."""
+    def ran(*a, **k):
+        raise AssertionError("the vmap backtest reached ekf3")
+
+    monkeypatch.setattr(ekf3_kernel, "ekf3", ran)
+    got = forecast_quality_assessment(batch, cfg=PipelineConfig(),
+                                      dtype=torch.float64, device="cpu",
+                                      **_kw(shape))
+    ref = jax_vmap_results[shape]
+    for f in FIELDS:
+        a, b = getattr(got, f).numpy(), np.asarray(getattr(ref, f))
+        np.testing.assert_array_equal(np.isnan(a), np.isnan(b), err_msg=f)
+        np.testing.assert_array_equal(np.isinf(a), np.isinf(b), err_msg=f)
+        ok = np.isfinite(b)
+        np.testing.assert_allclose(a[ok], b[ok], **TOL, err_msg=f)
+    np.testing.assert_allclose(got.trained.a2.numpy(),
+                               np.asarray(ref.trained.a2), **TOL)
+
+
 def test_backtest_lanes_are_region_major(batch, monkeypatch):
     """One ekf3 call over R * S lanes, lane r * S + s holding region r with
     its last s + 1 observations masked NaN (starts s = 0..S-1)."""
@@ -135,8 +165,8 @@ def test_nanmedian_is_numpys():
 
 def test_backtest_refuses_unported_options(batch):
     kw = dict(_kw("S>=H"), dtype=torch.float64, device="cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
-        forecast_quality_assessment(batch, cfg=PipelineConfig(), **kw)
+    with pytest.raises(TypeError, match="obs_hessian_terms"):
+        forecast_quality_assessment(batch, cfg=PipelineConfig(order=2), **kw)
     with pytest.raises(NotImplementedError, match="A18"):
         forecast_quality_assessment(
             batch, cfg=PipelineConfig(backend="pallas"), mesh=object(), **kw)

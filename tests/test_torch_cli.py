@@ -1,7 +1,8 @@
 """The port's XPRIZE CLI against the JAX package's, on the same files.
 
 The JAX CLI runs with --float64 --backend lanes, the port's with --device
-cpu --float64 --backend pallas (the kernels' plain versions, float64), on
+cpu --float64 --backend pallas (the kernels' plain versions, float64), and
+both with --backend vmap (the generic core), on
 CSVs written by pandas from the JAX package's synthetic frame with per-geo
 costs. The prescriptions CSVs must be byte-identical; the predictions (with
 and without a future-IP plan) equal at rtol 1e-9; the summaries' J0/J1 at
@@ -150,8 +151,20 @@ def test_cli_defaults_to_the_card_and_refuses_unported(tmp, monkeypatch):
         main(_args(tmp, "card"))
     with pytest.raises(NotImplementedError, match="A18"):
         main(_args(tmp, "mesh", "--device", "cpu", "--mesh", "2x1"))
-    with pytest.raises(NotImplementedError, match="A11"):
-        main(_args(tmp, "vmap", "--device", "cpu", "--backend", "vmap"))
+
+
+def test_vmap_prescriptions_are_byte_identical(tmp):
+    """--backend vmap (the generic core, the pinv smoother gain) against the
+    JAX CLI's --backend vmap on the same files: the same bytes."""
+    assert jax_main(_args(tmp, "jax_vmap", "--backend", "vmap")) == 0
+    assert main(_args(tmp, "port_vmap", "--device", "cpu", "--backend",
+                      "vmap")) == 0
+    assert filecmp.cmp(tmp / "presc_port_vmap.csv",
+                       tmp / "presc_jax_vmap.csv", shallow=False)
+    col = "PredictedDailyNewCases"
+    np.testing.assert_allclose(pd.read_csv(tmp / "pred_port_vmap.csv")[col],
+                               pd.read_csv(tmp / "pred_jax_vmap.csv")[col],
+                               **TOL)
 
 
 def test_cli_runs_as_a_module():

@@ -23,6 +23,11 @@ of 128) with and without obstacles, at atol 1e-5 * max|ref| (the CPU tests'
 bound, tests/test_spatial.py:153-154): the kernel sums in source order, the
 plain version in PyTorch's reduction order (a float32 sequential sum differs
 from the plain version by 3.3e-7 of the largest force at N = 300, CPU run).
+
+The generic EKF/EKS core, the MATLAB-exact pinv, the regressions and the Rt
+estimator have no hand-written kernel: they run as tensor ops on the card
+and are held against the same calls on the CPU in float64, at the
+tolerances their CPU tests hold them to against the JAX package.
 """
 
 import ctypes
@@ -47,7 +52,8 @@ from epidemicmodeling_torch.spatial import (PopulationSimConfig,
 from epidemicmodeling_torch.spatial.agents import default_environment
 from epidemicmodeling_torch.spatial.walkers import walking_sources_sim
 
-from chip_smoke import EKF3_BOUNDS, PAIRWISE_ROW_BOUND, law_rows, row_err
+from chip_smoke import (EKF3_BOUNDS, PAIRWISE_ROW_BOUND, law_rows,
+                        per_capita_case, pinv_ranks_agree, row_err)
 from tests._torch_helpers import (make_inputs, masked_err, packed_args,
                                   scaled_err)
 
@@ -513,3 +519,127 @@ def test_cli_runs_both_kernels_on_the_card(cuda, tmp_path):
     pred = parse_floats(read_csv_columns(tmp_path / "pred.csv")[
         "PredictedDailyNewCases"])
     assert np.isfinite(pred).all() and (pred >= 0).all()
+
+
+def _batch_first(d):
+    """make_inputs' lanes-last arrays as the generic core's batch-first
+    tensors (float64, CPU)."""
+    t = lambda a: torch.movedim(torch.tensor(a), -1, 0)
+    return dict(u=torch.tensor(d["u"]).permute(2, 0, 1),
+                x=torch.tensor(d["x"]).T, R=torch.tensor(d["Rv"]).T,
+                params={k: t(v) for k, v in d["params"].items()},
+                s_init=t(d["s_init"]), Ps_init=t(d["Ps_init"]),
+                s_final=t(d["s_final"]), Ps_final=t(d["Ps_final"]),
+                Q=t(d["Q"]))
+
+
+@pytest.mark.parametrize("outputs", ["full", "light"])
+@pytest.mark.parametrize("gain", ["pinv", "solve"])
+@pytest.mark.parametrize("m", [3, 6])
+def test_generic_core_on_the_card_matches_the_cpu(cuda, m, gain, outputs):
+    """The generic EKF/EKS core (ops/ekf.py) on the card against the same
+    call on the CPU, float64, B = 300 lanes: the CPU tests' tolerances
+    against the JAX package (rtol 1e-9 / atol 1e-12; the costate system
+    rtol 1e-4 / atol 1e-8, its inputs exactly). The 3-state system on
+    make_inputs' lanes (NaN holes and a NaN future); the costate system on
+    chip_smoke's per-capita inputs with active control (T = 532), whose
+    prior covariances stay below cond 1e8. Where they reach cond ~1e17 (the
+    NaN future of make_inputs' costate lanes, the XPRIZE sweep) the gains
+    are fixed only to cond * eps on either device, and the card and the CPU
+    part (chip_smoke.vmap_reference_check, PERF.md)."""
+    from epidemicmodeling_torch.models import (si_alpha_costate_ekf_system,
+                                               si_alpha_ekf_system)
+    from epidemicmodeling_torch.ops import ekf_smoother
+    if m == 3:
+        d = _batch_first(make_inputs(3, 300, 120, 90, seed=7))
+        system = si_alpha_ekf_system("NEWCASES")
+    else:
+        cp = per_capita_case(True)
+        cp = dict({k: np.asarray(v, np.float64) for k, v in cp.items()
+                   if k != "params"},
+                  params={k: np.asarray(v, np.float64)[..., :300]
+                          for k, v in cp["params"].items()})
+        d = _batch_first({k: v if k == "params" else v[..., :300]
+                          for k, v in cp.items()})
+        system = si_alpha_costate_ekf_system("NEWCASES")
+    run = lambda dev: ekf_smoother(
+        system, d["u"].to(dev), d["x"].to(dev),
+        {k: v.to(dev) for k, v in d["params"].items()}, d["s_init"].to(dev),
+        d["Ps_init"].to(dev), d["s_final"].to(dev), d["Ps_final"].to(dev),
+        Q=d["Q"].to(dev), R=d["R"].to(dev), gamma_discount=0.995,
+        smoother_gain=gain, outputs=outputs)
+    got, ref = run("cuda"), run("cpu")
+    tol = (dict(rtol=1e-9, atol=1e-12) if m == 3
+           else dict(rtol=1e-4, atol=1e-8))
+    for f in ref._fields:
+        r = getattr(ref, f)
+        if r is None:
+            assert getattr(got, f) is None
+            continue
+        torch.testing.assert_close(getattr(got, f).cpu(), r, equal_nan=True,
+                                   **tol, msg=lambda m, f=f: f"{f}: {m}")
+    assert torch.equal(got.u_opt_smooth.cpu(), ref.u_opt_smooth)
+
+
+@pytest.mark.parametrize("cond", [1e6, 1e14, 1e15, 1e16])
+def test_matlab_pinv_on_the_card(cuda, cond):
+    """MATLAB's pinv cutoff on the card (cuSOLVER's batched Jacobi SVD) on
+    tests/test_matlab_pinv.py's knife-edge inputs, float64, against the
+    CPU (chip_smoke.pinv_ranks_agree): the same kept rank, or a differing
+    one only where a singular value lies within the SVD's own error of the
+    cutoff; values within kappa * 1e-12 of their scale where the ranks
+    agree. At cond 1e6 the ranks must agree."""
+    from epidemicmodeling_torch.ops.ekf import _matlab_pinv
+    rng = np.random.default_rng(1)
+    mats = []
+    for _ in range(5):
+        q, _ = np.linalg.qr(rng.standard_normal((6, 6)))
+        mats.append((q * np.logspace(0, -np.log10(cond), 6)) @ q.T)
+    A = torch.tensor(np.stack(mats))
+    got, ref = _matlab_pinv(A.cuda()).cpu(), _matlab_pinv(A)
+    for k in range(5):
+        agree, ok = pinv_ranks_agree(got[k], ref[k], A[k])
+        assert ok and (agree or cond > 1e6), (cond, k)
+
+
+def test_regressions_on_the_card_match_the_cpu(cuda):
+    """lasso_cv and the element-wise robust fits, batched over regions, on
+    the card against the CPU, float64: the lasso at rtol 1e-9 / atol 1e-10
+    (its stopping tolerance is 1e-10), the robust fits at rtol 1e-9 /
+    atol 1e-12; the selected lambda exactly."""
+    from epidemicmodeling_torch.regression import (
+        lasso_cv, robust_affine_fit_elementwise)
+    rng = np.random.default_rng(3)
+    X = torch.tensor(rng.integers(0, 4, (4, 40, 12)).astype(float))
+    y = (X @ torch.tensor(0.02 * rng.random((4, 12, 1))))[..., 0] + 0.1 \
+        + torch.tensor(0.002 * rng.standard_normal((4, 40)))
+    c_g, i_g, info_g = lasso_cv(X.cuda(), y.cuda(), n_folds=8, n_lambda=20)
+    c_c, i_c, info_c = lasso_cv(X, y, n_folds=8, n_lambda=20)
+    assert torch.equal(info_g["index_min"].cpu(), info_c["index_min"])
+    torch.testing.assert_close(c_g.cpu(), c_c, rtol=1e-9, atol=1e-10)
+    torch.testing.assert_close(i_g.cpu(), i_c, rtol=1e-9, atol=1e-10)
+    a_g, b_g = robust_affine_fit_elementwise(X.cuda(), y.cuda())
+    a_c, b_c = robust_affine_fit_elementwise(X, y)
+    torch.testing.assert_close(a_g.cpu(), a_c, rtol=1e-9, atol=1e-12)
+    torch.testing.assert_close(b_g.cpu(), b_c, rtol=1e-9, atol=1e-12)
+
+
+@pytest.mark.parametrize("order", [1, 2])
+def test_rt_estimator_on_the_card_matches_the_cpu(cuda, order):
+    """rt_expfit_ekf (the order-2 consumer of the core) on the card
+    against the CPU, float64, at rtol 1e-9 / atol 1e-12."""
+    from epidemicmodeling_torch.rt import rt_expfit_ekf
+    rng = np.random.default_rng(5)
+    x = 5.0 * np.exp(0.03 * np.arange(90)) * np.exp(
+        0.03 * rng.standard_normal(90))
+    x[40:45] = np.nan
+    kw = dict(s_init=np.array([5.0, 0.0]), time_scale=1.0, alpha=0.9,
+              sigma=5.0, w_bar=np.array([0.0, 0.01]), v_bar=np.zeros(1),
+              Ps_init=np.diag([1.0, 0.1]), Q_w=np.diag([1e-2, 1e-4]),
+              R_v=np.array([[1e-2]]), beta=0.9, gamma=0.995, order=order)
+    got = rt_expfit_ekf(x, device="cuda", **kw)
+    ref = rt_expfit_ekf(x, device="cpu", **kw)
+    for f in ref._fields:
+        torch.testing.assert_close(getattr(got, f).cpu(), getattr(ref, f),
+                                   rtol=1e-9, atol=1e-12, equal_nan=True,
+                                   msg=lambda m, f=f: f"{f}: {m}")

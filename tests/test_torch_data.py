@@ -118,6 +118,9 @@ def test_port_imports_no_jax_or_pandas():
              for f in fs if f.endswith(".py")]
     files.append(os.path.join(os.path.dirname(PORT_ROOT), "chip_smoke.py"))
     assert len(files) > 15
+    for module in ("ops/ekf.py", "models/base.py", "rt/estimators.py",
+                   "regression/lasso.py", "regression/robust.py"):
+        assert os.path.join(PORT_ROOT, module) in files, module
     bad = [(os.path.relpath(f, os.path.dirname(PORT_ROOT)), mod)
            for f in files for mod in _imports(f)
            if mod.split(".")[0] in FORBIDDEN]

@@ -191,13 +191,76 @@ def test_monte_carlo_draws_follow_the_law(slice_inputs, jax_result):
 
 
 @pytest.mark.parametrize("change", [dict(backend="vmap"), dict(order=2)])
-def test_unported_options_raise(slice_inputs, change):
+def test_unported_options_raise(slice_inputs, change, monkeypatch):
+    """The two options the port once refused. backend="vmap" now runs: the
+    default PipelineConfig (the generic core, the MATLAB-exact pinv gain)
+    against the JAX package's default run, prescriptions and fronts
+    exactly, the continuous outputs at TOL, launching no hand-written
+    kernel. order=2 is refused by both packages with a TypeError (the
+    SI-alpha systems define no Hessian terms)."""
+    from epidemicmodeling_torch.ops.cuda import ekf3_kernel, ekf6_kernel
     d = slice_inputs
-    cfg = PipelineConfig(**dict(dict(backend="pallas", **COMMON), **change))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_pipeline(d["bt"], d["bf"], None, T_HIST, np.ones(12),
-                     d["eps"], np.zeros(12), NPI_MAXES_DEFAULT, T_HIST, cfg,
-                     dtype=torch.float64, device="cpu")
+    args = (d["bt"], d["bf"], d["actual"], T_HIST, np.ones(12), d["eps"],
+            np.zeros(12), NPI_MAXES_DEFAULT, T_HIST)
+    if "order" in change:
+        with pytest.raises(TypeError, match="obs_hessian_terms"):
+            run_pipeline(*args, PipelineConfig(**COMMON, **change),
+                         dtype=torch.float64, device="cpu")
+        with pytest.raises(TypeError):
+            jax_run_pipeline(*args, JaxConfig(backend="vmap", **COMMON,
+                                              **change),
+                             key=jax.random.PRNGKey(0))
+        return
+    kw = dict(pareto_chunk=COMMON["pareto_chunk"],
+              num_monte_carlo=COMMON["num_monte_carlo"])
+    assert PipelineConfig(**kw).backend == "vmap"
+    ref = jax_run_pipeline(*args, JaxConfig(**kw), key=jax.random.PRNGKey(0))
+
+    def ran(*a, **k):
+        raise AssertionError("the vmap backend reached a batch-last EKS")
+
+    monkeypatch.setattr(ekf3_kernel, "ekf3", ran)
+    monkeypatch.setattr(ekf6_kernel, "ekf6", ran)
+    port = run_pipeline(*args, PipelineConfig(**kw), dtype=torch.float64,
+                        device="cpu",
+                        u_random=np.asarray(ref.monte_carlo["u_random"]))
+    for k in ("a1", "b1", "a2", "b2"):
+        np.testing.assert_allclose(getattr(port.trained, k).numpy(),
+                                   np.asarray(getattr(ref.trained, k)),
+                                   **TOL, err_msg=k)
+    _assert_downstream_equal(port, ref)
+
+
+@pytest.mark.parametrize("regression", ["LASSO", "NONNEGATIVELS-ELEMENT-WISE"])
+def test_train_stage_regressions_match_jax(regression):
+    """The train stage with the reference driver's LASSO (lasso(...,'CV'),
+    5 folds here) and with the element-wise robust fits, both packages on
+    the generic core: every coefficient at TOL. The slice (2 regions,
+    seed 18) has no NPI constant over its 80-day regression window, where
+    the element-wise fit of the JAX package returns a rounding residue
+    (tests/test_torch_regression.py::test_robust_constant_column_has_no_
+    slope)."""
+    from epidemicmodeling_tpu.pipelines.core import \
+        train_regions as jax_train_regions
+    from epidemicmodeling_torch.pipelines import train_regions
+    _, _, truth = synthetic_oxford_frame(n_regions=2, n_days=99, seed=18)
+    sers = [preprocess_region(
+        np.cumsum(tr["s"] * tr["i"] * tr["alpha"] * tr["pop"])[:T_HIST],
+        None, tr["u"][:T_HIST], tr["pop"]) for tr in truth.values()]
+    bt = build_region_batch(sers, list(truth))
+    assert (np.ptp(np.asarray(bt.npis), axis=1) > 0).all()
+    kw = dict(regression_type=regression, lasso_cv_folds=5)
+    ref = jax_train_regions(bt, np.zeros(12), NPI_MAXES_DEFAULT, T_HIST,
+                            JaxConfig(**kw))
+    got = train_regions(bt, np.zeros(12), NPI_MAXES_DEFAULT, T_HIST,
+                        PipelineConfig(**kw), dtype=torch.float64,
+                        device="cpu")
+    for k in ("a1", "b1", "a2", "b2"):
+        np.testing.assert_allclose(getattr(got.trained, k).numpy(),
+                                   np.asarray(getattr(ref.trained, k)),
+                                   **TOL, err_msg=k)
+    np.testing.assert_allclose(got.s_smooth_round2.numpy(),
+                               np.asarray(ref.s_smooth_round2), **TOL)
 
 
 def test_pipeline_defaults_to_the_card(slice_inputs, monkeypatch):
