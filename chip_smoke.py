@@ -80,7 +80,24 @@ CUDA toolkit (nvcc). In order, it:
    device busy share, the main path's output checks), its train stage
    against the "pallas" backend's; the backtest on the core against the
    pallas backtest; the train stage with LASSO (50 folds) and with the
-   element-wise fits, with LASSO's sweep count.
+   element-wise fits, with LASSO's sweep count;
+13. drives the standalone trainer and prescriptor and the modules around
+   them: train_npi_prescriptor ("pallas") on the CLI phase's CSVs (235 x
+   440), cold then warm, with its ekf3 launches (those train_regions makes
+   inside run_pipeline), its mortality estimates and its .npz reloaded
+   equal; prescribe_from_checkpoint from that checkpoint at the paper's
+   scale (2000 epsilons x 235 regions x 532 days in chunks of 25: 80 ekf6
+   launches; 500 Monte-Carlo schedules), cold then warm, with its sweep's
+   filter-days/s and peak device memory, then on the XPRIZE run's own
+   inputs (its outputs bit for bit) and with the kernels against their
+   plain versions at 16 regions; new_case_ekf_optimal_npi (the pre-generic
+   6-state EKS) card against CPU in float64 on per-capita inputs, and its
+   float32 wall at 235 lanes; ar_alpha_prescription for all 235 regions,
+   card against CPU in float64 from the same draws; the four Rt estimators
+   and smooth_series's five filter types, card against CPU in float64;
+   filter_health on the trained states; train_predict_prescribe on the
+   realistic-artefact frame's CSVs, cold then warm, and the OxCGRT_latest
+   form of that frame, whose batches equal the minimal file's bit for bit.
 
 Every failed check raises, so the exit code is non-zero. Only when all
 phases pass does it print the kernel JSON line, the card's name and power
@@ -88,6 +105,7 @@ limit, and, last, {"ok": true, "device": {...}}. The kernel line also
 gives ekf6's time on the per-capita input with active control,
 pairwise's at N = 100,000, ekf3's at the backtest's (T = 440, B = 14,100)
 and each EKS kernel's launches on the CLI's and the backtest's warm runs,
+ekf3's on train_npi_prescriptor's and ekf6's on prescribe_from_checkpoint's,
 all measured in the same run.
 """
 
@@ -105,31 +123,54 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from epidemicmodeling_torch.control import epsilon_grid, random_npi_schedules
+from epidemicmodeling_torch.control import (epsilon_grid,
+                                            pareto_front_mask_batched,
+                                            random_npi_schedules)
+from epidemicmodeling_torch.control.pareto import npi_level_draws
 from epidemicmodeling_torch.data import (NPI_MAXES_DEFAULT,
                                          OXFORD_NPI_COLUMNS,
-                                         build_region_batch,
+                                         build_region_batch, load_geo_list,
+                                         load_oxford_data, load_populations,
                                          preprocess_region,
+                                         realistic_oxford_frame,
                                          synthetic_oxford_frame,
-                                         synthetic_regions, write_oxford_csvs)
+                                         synthetic_regions,
+                                         to_oxcgrt_latest_schema,
+                                         write_oxford_csvs)
 from epidemicmodeling_torch.data.csvio import (parse_floats,
                                                read_csv_columns,
                                                write_csv_columns)
 from epidemicmodeling_torch.ops.cuda import (build, ekf3_kernel, ekf6_kernel,
                                              pairwise_kernel, roofline_kernel,
                                              stencil_kernel)
+from epidemicmodeling_torch.ops.diagnostics import (filter_health,
+                                                    summarize_health)
+from epidemicmodeling_torch.ops.ar import ar_design, ar_normal_matrix
+from epidemicmodeling_torch.ops.ekf import _matlab_pinv
+from epidemicmodeling_torch.ops.smoothing import smooth_series
 from epidemicmodeling_torch.pipelines import (PipelineConfig,
+                                              build_batches_from_frames,
                                               forecast_quality_assessment,
+                                              load_trained_params,
                                               pareto_prescribe,
+                                              prescribe_from_checkpoint,
                                               run_pipeline,
+                                              train_npi_prescriptor,
+                                              train_predict_prescribe,
                                               trained_params_from_numpy,
                                               xprize_cli)
 from epidemicmodeling_torch.pipelines import core
+from epidemicmodeling_torch.pipelines import prescribe as prescribe_mod
 from epidemicmodeling_torch.pipelines.core import (
-    device_batch, ekf3_lane_inputs, pareto_prep, region_init, stage_params,
-    sweep_eks_vmap, sweep_lane_inputs, to_tensor, train_regions)
-from epidemicmodeling_torch.ops.ekf import _matlab_pinv
+    device_batch, ekf3_lane_inputs, forecast_scenarios, pareto_prep,
+    region_init, stage_params, sweep_eks_vmap, sweep_lane_inputs, to_tensor,
+    train_regions)
+from epidemicmodeling_torch.pipelines.prescribe import (
+    ARPrescriptionResult, ar_alpha_prescription, new_case_ekf_optimal_npi)
 from epidemicmodeling_torch.regression import nnls_with_intercept
+from epidemicmodeling_torch.rt import (rt_expfit_ekf, rt_expfit_gen_ratios,
+                                       rt_expfit_log_lin_reg,
+                                       rt_expfit_nonlin_ls)
 from epidemicmodeling_torch.spatial import (PopulationSimConfig,
                                             diffusion_rollout,
                                             population_motion_sim)
@@ -157,6 +198,13 @@ EKF6_FINITE = {"s_plus": 1e-3, "s_smooth": 1e-2, "u_diff": 5e-3,
 # MIN_U_MAX_SHARE of its cells
 EKF6_ACTIVE = dict(EKF6_FINITE)
 MIN_U_MAX_SHARE = 0.1
+# run_pipeline (and prescribe_from_checkpoint) with the kernels against the
+# same call with their plain versions, float32: the historic states and
+# the scenario and Monte-Carlo costs relative, the share of prescribed
+# cells that differ, the median relative difference of the sweep's J1
+SMALL_REF_BOUNDS = {"s_hist": 1e-3, "scenario_J0": 1e-3,
+                    "pareto_u_diff": 5e-3, "pareto_J1_med": 1e-2,
+                    "mc_J0": 1e-3}
 KERNELS = {
     "ekf3": dict(run=ekf3_kernel.ekf3, plain=ekf3_kernel.ekf3_plain,
                  source="epidemicmodeling_torch/csrc/ekf3.cu",
@@ -291,6 +339,26 @@ VMAP_LASSO_COEF_TOL = dict(rtol=1e-9, atol=1e-10)
 VMAP_TRAIN_BOUND = 1e-4
 VMAP_BACKTEST_BOUND = 1e-2
 REGRESSIONS = ("NONNEGATIVELS", "LASSO", "NONNEGATIVELS-ELEMENT-WISE")
+# slice 5: the paper's sweep (testPrescribeXPRIZE01.m:160-198); the
+# kernels-vs-plain check of prescribe_from_checkpoint at 16 regions in
+# chunks of 500 epsilons (the plain version's time is per chunk); AR-alpha
+# as PrescribeNPI.m:202-214 runs it; the pre-generic EKS's lanes and its
+# adaptive-R factor; the realistic-artefact frame's seed and files
+SLICE5_EPS = 2000
+PLAIN_CHECK_REGIONS, PLAIN_CHECK_CHUNK = 16, 500
+AR_ORDER, AR_HISTORY, AR_SCENARIOS = 24, 90, 10
+NEWCASE_LANES, NEWCASE_BETA = 300, 0.9
+REALISTIC_DIR = Path(__file__).resolve().parent / "build" / \
+    "chip_smoke_realistic"
+REALISTIC_SEED = 7
+FILTER_TYPES = ("BYPASS", "TIKHONOV", "MOVINGAVERAGE-CAUSAL",
+                "MOVINGAVERAGE-NONCAUSAL", "MOVINGMEDIAN")
+# card against CPU in float64: the CPU tests' tolerance against the JAX
+# package; rt_expfit_nonlin_ls's LM fixes its fit only to ~1e-9, so it is
+# held by co-optimality (window costs within LM_COST_RTOL) and at LM_RTOL
+# (tests/test_torch_rt_smoothing.py)
+SLICE5_TOL = dict(rtol=1e-9, atol=1e-12)
+LM_RTOL, LM_COST_RTOL = 5e-9, 1e-11
 
 
 def log(msg: str) -> None:
@@ -495,6 +563,21 @@ def compare_kernel(name, tag, args, device, bounds, timed):
     return dict(tag=tag, abs_err=abs_err, ms=ms, plain_ms=plain_ms, T=T, B=B)
 
 
+def sweep_errs(k_par, p_par, k_mc, p_mc) -> dict:
+    """The sweep's and the Monte-Carlo baseline's kernels-vs-plain errors
+    of SMALL_REF_BOUNDS: the share of prescribed cells that differ (the
+    last row, 0 by convention, left out), the median relative difference
+    of J1, the largest relative difference of the Monte-Carlo J0."""
+    return {
+        "pareto_u_diff": float((k_par["u_prescribed"][:, :, :-1].cpu()
+                                != p_par["u_prescribed"][:, :, :-1].cpu())
+                               .double().mean()),
+        "pareto_J1_med": float(torch.median(torch.abs(
+            k_par["J1"].cpu() / p_par["J1"].cpu() - 1))),
+        "mc_J0": rel_err(k_mc["J0"].cpu(), p_mc["J0"].cpu()),
+    }
+
+
 @contextlib.contextmanager
 def plain_versions():
     """Route the pipeline's kernel calls to the kernels' plain versions."""
@@ -529,19 +612,11 @@ def small_reference_check(device):
         "s_hist": scaled_err(k.s_hist, p.s_hist),
         "scenario_J0": max(rel_err(k.scenarios[n].J0, p.scenarios[n].J0)
                            for n in p.scenarios),
-        "pareto_u_diff": float((k.pareto["u_prescribed"][:, :, :-1]
-                                != p.pareto["u_prescribed"][:, :, :-1])
-                               .double().mean()),
-        "pareto_J1_med": float(torch.median(
-            torch.abs(k.pareto["J1"] / p.pareto["J1"] - 1))),
-        "mc_J0": rel_err(k.monte_carlo["J0"], p.monte_carlo["J0"]),
-    }
+        **sweep_errs(k.pareto, p.pareto, k.monte_carlo, p.monte_carlo)}
     log("small reference (kernels vs plain versions, 16 regions x "
         f"{T_h}+{H} days, 16 eps): "
         + " ".join(f"{n}={v:.3e}" for n, v in errs.items()))
-    bounds = {"s_hist": 1e-3, "scenario_J0": 1e-3, "pareto_u_diff": 5e-3,
-              "pareto_J1_med": 1e-2, "mc_J0": 1e-3}
-    for n, bound in bounds.items():
+    for n, bound in SMALL_REF_BOUNDS.items():
         check(errs[n] <= bound, f"small reference {n} {errs[n]:.3e} > "
                                 f"{bound}")
 
@@ -1124,12 +1199,10 @@ def roofline_phase(device):
     return rate, flops
 
 
-def cli_phase(device):
-    """The XPRIZE CLI on the card at the XPRIZE size, from CSV files the
-    port's synthetic frame writes: cold then warm (launches of the warm run
-    counted, its wall split as the summary records it), then from the warm
-    run's checkpoint, then with a future-IP plan. Returns the warm launch
-    counts and wall split."""
+def write_cli_csvs():
+    """The XPRIZE-size CSVs (235 regions x 532 days, the port's synthetic
+    frame, with deaths) and a future-IP plan (every NPI at its maximum over
+    the horizon) under CLI_DIR. Returns (the files, the ISO days)."""
     shutil.rmtree(CLI_DIR, ignore_errors=True)
     CLI_DIR.mkdir(parents=True)
     t0 = time.perf_counter()
@@ -1148,6 +1221,17 @@ def cli_phase(device):
         f"{T_HIST + HORIZON} days, "
         f"{Path(files['data']).stat().st_size / 2**20:.1f} MiB) in "
         f"{time.perf_counter() - t0:.3f}s")
+    return files, days
+
+
+def cli_phase(device):
+    """The XPRIZE CLI on the card at the XPRIZE size, from CSV files the
+    port's synthetic frame writes: cold then warm (launches of the warm run
+    counted, its wall split as the summary records it), then from the warm
+    run's checkpoint, then with a future-IP plan. Returns the warm launch
+    counts, its wall split and (the CSV files, the ISO days)."""
+    files, days = write_cli_csvs()
+    presc_start = days[T_HIST]
 
     def run(tag, *extra):
         out = {k: str(CLI_DIR / f"{k}_{tag}.{ext}") for k, ext in
@@ -1211,7 +1295,7 @@ def cli_phase(device):
         f"{moved:.4f} of the cells moved")
     check(moved > 0.5 and pred_ip.sum() < pred.sum(),
           "cli: the future-IP plan did not condition the predictions")
-    return launches, dict(summary["wall_seconds"], total=wall)
+    return launches, dict(summary["wall_seconds"], total=wall), (files, days)
 
 
 def backtest_phase(device, bt):
@@ -1663,8 +1747,520 @@ def vmap_phase(device, bt, bf, actual):
     return wall
 
 
+# ---------------------------------------------------------------------------
+# slice 5: the standalone trainer and prescriptor, AR-alpha, the pre-generic
+# 6-state EKS, Rt, smoothing, filter health and the realistic-artefact data
+
+
+def xprize_cfg(**kw):
+    """The XPRIZE cell's kernel-path configuration."""
+    return PipelineConfig(**dict(dict(
+        backend="pallas", smoother_gain="solve", pareto_chunk=CHUNK,
+        num_monte_carlo=N_MC), **kw))
+
+
+def csv_batches(files, days, cfg):
+    """The XPRIZE CLI's batches from an oxford / populations / geos file
+    set, through the port's loaders: (batch_train, batch_full, actual
+    NPIs, T_hist, horizon) over CLI_START .. days[-1], training to
+    days[T_HIST - 1]."""
+    table = load_oxford_data(files["data"], OXFORD_NPI_COLUMNS, CLI_START,
+                             days[-1])
+    return build_batches_from_frames(
+        table, load_populations(files["populations"]),
+        load_geo_list(files["geos"]), CLI_START, days[T_HIST - 1], days[-1],
+        None, cfg)
+
+
+def same_batches(a, b) -> bool:
+    """Two build_batches_from_frames results equal field by field, bit for
+    bit (NaN where NaN)."""
+    def same(x, y):
+        if isinstance(x, tuple) and hasattr(x, "_fields"):
+            return all(same(getattr(x, f), getattr(y, f)) for f in x._fields)
+        if isinstance(x, np.ndarray):
+            return (x.shape == y.shape and x.dtype == y.dtype
+                    and bool(np.array_equal(x, y, equal_nan=x.dtype.kind
+                                            == "f")))
+        return x == y
+    return all(same(x, y) for x, y in zip(a, b))
+
+
+@contextlib.contextmanager
+def stage_walls(module, names, walls):
+    """Wrap module.<name> for each name so that every call's wall, ended by
+    a device sync, adds up in walls[name]."""
+    saved = {n: getattr(module, n) for n in names}
+
+    def timed(n, fn):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            walls[n] = walls.get(n, 0.0) + time.perf_counter() - t0
+            return out
+        return call
+
+    for n, fn in saved.items():
+        setattr(module, n, timed(n, fn))
+    try:
+        yield walls
+    finally:
+        for n, fn in saved.items():
+            setattr(module, n, fn)
+
+
+def trainer_phase(device, files, days):
+    """train_npi_prescriptor (backend "pallas") on the XPRIZE-size batch
+    from the CLI phase's CSVs, cold then warm: its ekf3 launches equal those
+    train_regions makes inside run_pipeline, the mortality estimates are
+    defined (the files carry deaths), and its .npz reloads equal."""
+    cfg = xprize_cfg()
+    bt, bf, _, T_h, _ = csv_batches(files, days, cfg)
+    check(bt.observations.shape == (R_REGIONS, T_HIST) and T_h == T_HIST,
+          f"trainer: batch {bt.observations.shape}")
+    ckpt = CLI_DIR / "slice5_trained.npz"
+    for tag in ("cold", "warm"):
+        reset_launches()
+        t0 = time.perf_counter()
+        out, mort = train_npi_prescriptor(
+            bt, MINS, NPI_MAXES_DEFAULT, T_HIST,
+            trained_params_file=str(ckpt), cfg=cfg, dtype=F32,
+            device=device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = read_launches()
+        check(mort is not None, "trainer: no mortality estimates")
+        finite = float(np.isfinite(mort.med_recent_beta).mean())
+        log(f"train_npi_prescriptor {tag}: {R_REGIONS} regions x {T_HIST} "
+            f"days from the CLI's CSVs: wall={wall:.3f}s launches={n}; "
+            f"med_recent_beta finite share {finite:.4f} (median "
+            f"{np.nanmedian(mort.med_recent_beta):.4e}), "
+            f"med_recent_mortality median "
+            f"{np.median(mort.med_recent_mortality):.4e}")
+    reset_launches()
+    train_regions(bt, MINS, NPI_MAXES_DEFAULT, T_HIST, cfg, dtype=F32,
+                  device=device)
+    torch.cuda.synchronize()
+    in_pipeline = read_launches()
+    check(n == in_pipeline and n["ekf3"] == 2 and n["ekf6"] == 0,
+          f"trainer: launches {n}, train_regions makes {in_pipeline}")
+    check(finite == 1.0, f"trainer: med_recent_beta finite share {finite}")
+    check(all(t.device == device for t in (out.trained.a2, out.init.s_init,
+                                           out.s_smooth_round2)),
+          f"trainer: an output is not on {device}")
+    loaded = load_trained_params(ckpt)
+    same = loaded.names == out.trained.names and all(
+        np.array_equal(getattr(loaded, k), getattr(out.trained, k).cpu()
+                       .numpy()) for k in ("a1", "b1", "a2", "b2")) and \
+        np.array_equal(loaded.population, out.trained.population)
+    check(same, "trainer: the checkpoint does not reload equal")
+    return dict(out=out, mort=mort, bf=bf, cfg=cfg, ckpt=ckpt, launches=n,
+                wall=wall)
+
+
+def prescriber_phase(device, tr, main_res, bt_syn, bf_syn):
+    """prescribe_from_checkpoint at the paper's scale (testPrescribeXPRIZE01
+    .m:160: 2000 epsilons x 235 regions x 532 days in chunks of 25, 500
+    Monte-Carlo schedules) from the trainer's checkpoint, cold then warm;
+    then on the XPRIZE run's own inputs (bit for bit its outputs), then
+    with the kernels against their plain versions at 16 regions."""
+    cfg = tr["cfg"]
+    trained = trained_params_from_numpy(load_trained_params(tr["ckpt"]),
+                                        F32, device)
+    init = tr["out"].init
+    _, s_hist = forecast_scenarios(tr["bf"], trained, init, WEIGHTS, MINS,
+                                   NPI_MAXES_DEFAULT, T_HIST, cfg,
+                                   dtype=F32, device=device)
+    eps = epsilon_grid(SLICE5_EPS).numpy()
+    days = SLICE5_EPS * R_REGIONS * (T_HIST + HORIZON)
+    for tag in ("cold", "warm"):
+        par = mc = None
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        walls = {}
+        reset_launches()
+        t0 = time.perf_counter()
+        with stage_walls(prescribe_mod, ("pareto_prescribe",
+                                         "monte_carlo_baseline"), walls):
+            par, mc = prescribe_from_checkpoint(
+                trained, tr["bf"], s_hist, init, eps, WEIGHTS, MINS,
+                NPI_MAXES_DEFAULT, T_HIST, cfg,
+                generator=torch.Generator().manual_seed(0), dtype=F32,
+                device=device)
+        wall = time.perf_counter() - t0
+        n = read_launches()
+        peak = torch.cuda.max_memory_allocated(device) / 2**30
+        log(f"prescribe_from_checkpoint {tag}: {SLICE5_EPS} eps x "
+            f"{R_REGIONS} regions x {T_HIST + HORIZON} days, chunks of "
+            f"{CHUNK}: wall={wall:.3f}s sweep="
+            f"{walls['pareto_prescribe']:.3f}s monte_carlo="
+            f"{walls['monte_carlo_baseline']:.3f}s sweep filter-days/s="
+            f"{days / walls['pareto_prescribe']:.4e} launches={n} peak "
+            f"device memory {peak:.2f} GiB")
+    check(n["ekf6"] == SLICE5_EPS // CHUNK and n["ekf3"] == 0,
+          f"prescriber: launches {n}")
+    u = par["u_prescribed"]
+    check(tuple(u.shape) == (SLICE5_EPS, R_REGIONS, HORIZON, 12)
+          and u.device == device, f"prescriber: u_prescribed {u.shape}")
+    hi = to_tensor(NPI_MAXES_DEFAULT, F32, device)
+    check(bool(((u == 0) | (u == hi)).all()),
+          "prescriber: a prescribed cell is neither u_min nor u_max")
+    for src, d in (("sweep", par), ("monte carlo", mc)):
+        check(bool(torch.isfinite(d["J0"]).all()
+                   and torch.isfinite(d["J1"]).all()),
+              f"prescriber: {src} costs not finite")
+    check(tuple(mc["J0"].shape) == (N_MC, R_REGIONS),
+          "prescriber: monte carlo shape")
+    front = pareto_front_mask_batched(par["J0"], par["J1"])
+    check(int(front.sum(dim=0).min()) >= 1,
+          "prescriber: a region has an empty Pareto front")
+    one = bool((u == u[:1]).all())
+    log(f"prescriber: {u.numel() * 4 / 2**30:.2f} GiB of float32 "
+        f"prescriptions, bang-bang; front sizes min/median/max "
+        f"{int(front.sum(0).min())}/{int(front.sum(0).median())}/"
+        f"{int(front.sum(0).max())}; every epsilon prescribes the same "
+        f"schedule: {one}" + (" (the control never activates on this "
+                              "synthetic data, ROADMAP Queue C)" if one
+                              else ""))
+    del par, mc, u, front
+
+    # the XPRIZE run's own 250 epsilons, chunks, trained parameters,
+    # historic states and Monte-Carlo schedules: the same kernels on the
+    # same inputs, so its outputs bit for bit
+    bt_d, _, _ = device_batch(bt_syn, F32, device)
+    p2, m2 = prescribe_from_checkpoint(
+        main_res.trained, bf_syn, main_res.s_hist,
+        region_init(bt_d, cfg, F32, device), epsilon_grid(N_EPS).numpy(),
+        WEIGHTS, MINS, NPI_MAXES_DEFAULT, T_HIST, cfg, dtype=F32,
+        device=device, u_random=main_res.monte_carlo["u_random"])
+    same = {k: torch.equal(p2[k], main_res.pareto[k])
+            for k in ("J0", "J1", "u_prescribed")}
+    same.update({f"mc_{k}": torch.equal(m2[k], main_res.monte_carlo[k])
+                 for k in ("J0", "J1")})
+    log(f"prescribe_from_checkpoint on the XPRIZE run's inputs ({N_EPS} "
+        f"eps): equal to its outputs bit for bit: {same}")
+    check(all(same.values()), "prescriber: differs from the XPRIZE run")
+    prescribe_plain_check(device)
+    return dict(launches=n, wall=wall, sweep=walls["pareto_prescribe"])
+
+
+def prescribe_plain_check(device):
+    """prescribe_from_checkpoint with the kernels against the same call
+    with their plain versions at 16 regions (small_reference_check's
+    inputs, 100 + 20 days; the 2000 epsilons in chunks of 500 so that the
+    plain version's four chunks stay short), float32, from the same
+    trained parameters, historic states and Monte-Carlo schedules, at
+    SMALL_REF_BOUNDS."""
+    T_h, H = 100, 20
+    _, bf, _, coefs = xprize_inputs(PLAIN_CHECK_REGIONS, T_h, H, seed=1)
+    cfg = xprize_cfg(pareto_chunk=PLAIN_CHECK_CHUNK, num_monte_carlo=32)
+    trained = trained_params_from_numpy(coefs, F32, device)
+    bf_d, _, _ = device_batch(bf, F32, device)
+    init = region_init(bf_d, cfg, F32, device)
+    _, s_hist = forecast_scenarios(bf, trained, init, WEIGHTS, MINS,
+                                   NPI_MAXES_DEFAULT, T_h, cfg, dtype=F32,
+                                   device=device)
+    u_random = random_npi_schedules(torch.Generator().manual_seed(1), 32,
+                                    MINS, NPI_MAXES_DEFAULT, H)
+    run = lambda: prescribe_from_checkpoint(
+        trained, bf, s_hist, init, epsilon_grid(SLICE5_EPS).numpy(),
+        WEIGHTS, MINS, NPI_MAXES_DEFAULT, T_h, cfg, dtype=F32,
+        device=device, u_random=u_random)
+    reset_launches()
+    kp, km = run()
+    n = read_launches()
+    with plain_versions():
+        pp, pm = run()
+    check(n["ekf6"] == SLICE5_EPS // PLAIN_CHECK_CHUNK,
+          f"prescriber plain check: launches {n}")
+    errs = sweep_errs(kp, pp, km, pm)
+    log(f"prescribe_from_checkpoint, kernels vs plain versions "
+        f"({PLAIN_CHECK_REGIONS} regions x {T_h}+{H} days, {SLICE5_EPS} eps "
+        f"in chunks of {PLAIN_CHECK_CHUNK}, {n['ekf6']} ekf6 launches): "
+        + " ".join(f"{k}={v:.3e}" for k, v in errs.items()))
+    for k, v in errs.items():
+        check(v <= SMALL_REF_BOUNDS[k],
+              f"prescriber plain check: {k} {v:.3e} > {SMALL_REF_BOUNDS[k]}")
+
+
+def new_case_phase(device):
+    """new_case_ekf_optimal_npi (the pre-generic 6-state EKS) on the card
+    against the CPU, float64, on the per-capita inputs with active control
+    (300 lanes, T = 532, every P- below cond 1e8): prescriptions equal, the
+    epidemic states at SLICE5_TOL, the costates at the costate bound
+    VMAP_COSTATE_TOL; then its float32 wall on the card at 235 lanes."""
+    d = per_capita_case(True)
+    t = lambda a, n: torch.movedim(torch.from_numpy(
+        np.asarray(a, np.float64)), -1, 0)[:n]
+
+    def args(n, dtype, dev):
+        a = dict(u=torch.from_numpy(np.asarray(d["u"], np.float64)
+                                    ).permute(2, 0, 1)[:n],
+                 x=t(d["x"], n), s_init=t(d["s_init"], n),
+                 Ps_init=t(d["Ps_init"], n), s_final=t(d["s_final"], n),
+                 Ps_final=t(d["Ps_final"], n), Q=t(d["Q"], n),
+                 R=t(d["Rv"], n))
+        a = {k: v.to(dev, dtype) for k, v in a.items()}
+        a["params"] = {k: t(v, n).to(dev, dtype)
+                       for k, v in d["params"].items()}
+        return a
+
+    run = lambda a: new_case_ekf_optimal_npi(
+        a["u"], a["x"], a["params"], a["s_init"], a["Ps_init"], a["s_final"],
+        a["Ps_final"], Q=a["Q"], R=a["R"], beta=NEWCASE_BETA,
+        gamma=0.995)
+    g = run(args(NEWCASE_LANES, torch.float64, device))
+    c = run(args(NEWCASE_LANES, torch.float64, torch.device("cpu")))
+    cond = float(max_cond(c.P_minus).max())
+    same = torch.equal(g.u_opt_smooth.cpu(), c.u_opt_smooth)
+    share = float((c.u_opt_smooth[:, T_HIST:-1] != 0).double().mean())
+    ratios = {}
+    for f in ("s_plus", "s_smooth", "s_minus"):
+        ratios[f] = close_ratio(getattr(g, f)[..., :3],
+                                getattr(c, f)[..., :3], SLICE5_TOL)
+        ratios[f + "_costates"] = close_ratio(
+            getattr(g, f)[..., 3:], getattr(c, f)[..., 3:], VMAP_COSTATE_TOL)
+    ratios["P_smooth"] = close_ratio(g.P_smooth, c.P_smooth,
+                                     VMAP_COSTATE_TOL)
+    log(f"new_case_ekf_optimal_npi (card vs CPU, float64, {NEWCASE_LANES} "
+        f"per-capita lanes, T={c.s_plus.shape[1]}, control active, beta="
+        f"{NEWCASE_BETA}): max cond(P-) {cond:.2e}; prescriptions equal="
+        f"{same} (u_max share {share:.4f}); " + " ".join(
+            f"{k}={v:.3e}" for k, v in ratios.items()) + " of the bound")
+    check(cond < 1e8 and same and max(ratios.values()) <= 1.0,
+          "new_case_ekf_optimal_npi: card and CPU differ")
+    a32 = args(R_REGIONS, F32, device)
+    for tag in ("cold", "warm"):
+        t0 = time.perf_counter()
+        res = run(a32)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    check(bool(torch.isfinite(res.s_smooth[..., :3]).all()),
+          "new_case_ekf_optimal_npi float32: non-finite states")
+    log(f"new_case_ekf_optimal_npi float32 on the card, {R_REGIONS} lanes "
+        f"x T={res.s_plus.shape[1]}: warm wall={wall:.3f}s (generic core, "
+        f"no kernel)")
+
+
+def ar_phase(device, tr):
+    """ar_alpha_prescription for each of the 235 regions on the smoothed
+    alpha of the trainer's round 2 (AR(24) on the last 90 days, 92 days
+    ahead, 10 scenarios, the region's trained a2 / b2), in float64 on the
+    card and on the CPU from the same draws: the scenario costs and
+    trajectories at SLICE5_TOL, the alpha forecast at rtol
+    max(1e-9, p kappa eps) with kappa the condition number of the region's
+    AR normal matrix (the two devices' LU solves of it agree only to about
+    that); the card's wall for all regions."""
+    out, cfg = tr["out"], tr["cfg"]
+    S = out.s_smooth_round2.double().cpu()
+    a2, b2 = out.trained.a2.double().cpu(), out.trained.b2.double().cpu()
+    g = torch.Generator().manual_seed(0)
+    draws = [(torch.randn(HORIZON, generator=g, dtype=torch.float64),
+              npi_level_draws(g, (AR_SCENARIOS, HORIZON, 12), MINS,
+                              NPI_MAXES_DEFAULT))
+             for _ in range(R_REGIONS)]
+    t0 = T_HIST - AR_HISTORY
+
+    def run(dev):
+        start = time.perf_counter()
+        res = [ar_alpha_prescription(
+            S[r, :, 2].to(dev), a2[r], float(b2[r]), cfg.beta_model,
+            cfg.gamma_model, MINS, NPI_MAXES_DEFAULT, WEIGHTS,
+            float(S[r, t0, 0]), float(S[r, t0, 1]), HORIZON, AR_ORDER,
+            AR_HISTORY, AR_SCENARIOS, u_draw=draws[r][1],
+            ar_noise=draws[r][0], device=dev) for r in range(R_REGIONS)]
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        return res, time.perf_counter() - start
+
+    run(device)
+    card, wall = run(device)
+    cpu, cpu_wall = run(torch.device("cpu"))
+    kappa = torch.stack([torch.linalg.cond(ar_normal_matrix(
+        ar_design(S[r, -AR_HISTORY:, 2], AR_ORDER)[0], AR_ORDER))
+        for r in range(R_REGIONS)])
+    fc_tol = [dict(rtol=max(1e-9, AR_ORDER * float(k) * 2.0 ** -52),
+                   atol=1e-12) for k in kappa]
+    ratios = {f: max(close_ratio(getattr(a, f), getattr(b, f), SLICE5_TOL)
+                     for a, b in zip(card, cpu))
+              for f in ARPrescriptionResult._fields}
+    fc_ratio = max(close_ratio(a.alpha_forecast, b.alpha_forecast, tol)
+                   for a, b, tol in zip(card, cpu, fc_tol))
+    j0 = torch.stack([r.J0_random for r in card])
+    log(f"ar_alpha_prescription, {R_REGIONS} regions (AR({AR_ORDER}) on "
+        f"{AR_HISTORY} days, {HORIZON} ahead, {AR_SCENARIOS} scenarios), "
+        f"float64: card warm wall={wall:.3f}s (CPU {cpu_wall:.3f}s); card "
+        f"vs CPU at rtol 1e-9: " + " ".join(
+            f"{k}={v:.3e}" for k, v in ratios.items())
+        + f" of the bound; the AR normal matrices' cond median "
+        f"{float(kappa.median()):.3e} max {float(kappa.max()):.3e}, the "
+        f"forecast at rtol max(1e-9, p cond eps): {fc_ratio:.3e} of the "
+        f"bound; J0 median {float(j0.median()):.4e}")
+    held = [v for k, v in ratios.items() if k != "alpha_forecast"]
+    check(max(held) <= 1.0 and fc_ratio <= 1.0 and all(
+        bool(torch.isfinite(r.J0_random).all()) for r in card),
+        "ar_alpha_prescription: card and CPU differ")
+
+
+def rt_series():
+    """examples/rt_comparison.py's series: one synthetic region, 200 days,
+    floored at 1e-3."""
+    tr = next(iter(synthetic_regions(1, 200, seed=1).values()))
+    return np.maximum(tr["s"] * tr["i"] * tr["alpha"] * tr["pop"], 1e-3)
+
+
+def lm_costs(x, A, lam, wlen):
+    """Every causal window's cost sum (y - A exp(lambda t))^2 at an
+    rt_expfit_nonlin_ls fit (time unit 1), float64 on the host."""
+    A, lam = A.double().cpu().numpy(), lam.double().cpu().numpy()
+    n = np.arange(-wlen + 1, 1)
+    idx = np.arange(len(x) - wlen + 1) + wlen - 1
+    win = np.lib.stride_tricks.sliding_window_view(x, wlen)
+    return ((win - A[idx, None] * np.exp(lam[idx, None] * n)) ** 2).sum(1)
+
+
+def rt_smoothing_phase(device, tr):
+    """The four Rt estimators (the EKF at order 2, as the example runs it)
+    on examples/rt_comparison.py's series and smooth_series with every
+    filter type, float64 on the card against the CPU at SLICE5_TOL (the
+    nonlinear least squares by co-optimality and at LM_RTOL: its LM fixes
+    A and lambda only to ~1e-9, tests/test_torch_rt_smoothing.py); then
+    filter_health / summarize_health on the trainer's round 2."""
+    x = rt_series()
+    ekf_kw = dict(s_init=np.array([x[0], 0.0]), time_scale=1.0, alpha=1.0,
+                  sigma=1.0, w_bar=np.zeros(2), v_bar=np.zeros(1),
+                  Ps_init=np.diag([1.0, 0.1]), Q_w=np.diag([1e-1, 1e-4]),
+                  R_v=np.array([[1e-1]]), order=2)
+
+    def estimators(dev):
+        xt = torch.tensor(x, device=dev)
+        ekf = rt_expfit_ekf(xt, **ekf_kw)
+        return {"gen_ratios": rt_expfit_gen_ratios(xt, 7, 3, 1.0),
+                "log_lin_reg": rt_expfit_log_lin_reg(xt, 14, 1.0),
+                "nonlin_ls": rt_expfit_nonlin_ls(xt, 14, 1.0),
+                "ekf": (ekf.s_smooth, ekf.s_plus, ekf.P_smooth),
+                **{f"smooth {ft}": (smooth_series(xt, ft),)
+                   for ft in FILTER_TYPES}}
+
+    t0 = time.perf_counter()
+    card = estimators(device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    cpu = estimators(torch.device("cpu"))
+    ratios = {}
+    for name, outs in cpu.items():
+        got = card[name]
+        check(all(o.device == device for o in got),
+              f"rt/smoothing {name}: not on {device}")
+        if name == "nonlin_ls":
+            c_g, c_c = lm_costs(x, got[1], got[2], 14), lm_costs(
+                x, outs[1], outs[2], 14)
+            ratios["nonlin_ls_cost"] = float(np.max(
+                np.abs(c_g - c_c) / (LM_COST_RTOL * c_c)))
+            ratios[name] = max(close_ratio(got[k], outs[k], dict(
+                rtol=LM_RTOL, atol=0.0)) for k in (0, 1, 3))
+            lam_atol = LM_RTOL * float(outs[2].abs().max())
+            ratios["nonlin_ls_lambda"] = close_ratio(
+                got[2], outs[2], dict(rtol=0.0, atol=lam_atol))
+        else:
+            ratios[name] = max(close_ratio(g, c, SLICE5_TOL)
+                               for g, c in zip(got, outs))
+    lam = {k: card[k][2] for k in ("log_lin_reg", "nonlin_ls")}
+    lam["gen_ratios"] = card["gen_ratios"][3]
+    lam["ekf"] = card["ekf"][0][:, 1]
+    log(f"rt estimators and smoothing (card vs CPU, float64, T={len(x)}): "
+        f"card wall {wall:.3f}s; " + " ".join(
+            f"{k}={v:.3e}" for k, v in ratios.items()) + " of the bound; "
+        "growth rate at days 30/90/150 " + " ".join(
+            f"{k}=" + "/".join(f"{float(v[d]):.4f}" for d in (30, 90, 150))
+            for k, v in lam.items()))
+    check(max(ratios.values()) <= 1.0, "rt/smoothing: card and CPU differ")
+    out = tr["out"]
+    health = filter_health(out.s_smooth_round2, out.rho_round2)
+    summary = summarize_health(health, out.trained.names).splitlines()
+    log(f"filter_health on the trainer's round 2: {summary[0]}; non-finite "
+        f"{int(health.nan_states.sum())}, exploded "
+        f"{int(health.state_explosion.sum())}, rho outside [0.1, 10] "
+        f"{int((~health.rho_consistent).sum())}, median tail rho "
+        f"{float(np.nanmedian(health.rho_mean)):.4f}"
+        + (f"; first: {summary[1].strip()}" if len(summary) > 1 else ""))
+    check(not health.nan_states.any(),
+          "filter_health: non-finite states after training")
+
+
+def realistic_phase(device):
+    """The realistic-artefact frame (235 regions x 532 days, seed 7)
+    written as CSVs, train_predict_prescribe on it on the card (the XPRIZE
+    cell's epsilons, chunks and Monte Carlo), cold then warm, its outputs
+    checked; then the same frame in the OxCGRT_latest schema, whose batches
+    through the port's loaders equal the minimal file's bit for bit."""
+    shutil.rmtree(REALISTIC_DIR, ignore_errors=True)
+    (REALISTIC_DIR / "latest").mkdir(parents=True)
+    t0 = time.perf_counter()
+    frame, pops, _ = realistic_oxford_frame(R_REGIONS, T_HIST + HORIZON,
+                                            CLI_START, seed=REALISTIC_SEED)
+    files = write_oxford_csvs(REALISTIC_DIR, frame, pops)
+    wide = write_oxford_csvs(REALISTIC_DIR / "latest",
+                             to_oxcgrt_latest_schema(frame,
+                                                     seed=REALISTIC_SEED),
+                             pops)
+    days = date_range_days(CLI_START, T_HIST + HORIZON)
+    mib = lambda f: Path(f["data"]).stat().st_size / 2**20
+    log(f"realistic: wrote the artefact frame ({mib(files):.1f} MiB) and its "
+        f"OxCGRT_latest form ({mib(wide):.1f} MiB) in "
+        f"{time.perf_counter() - t0:.3f}s")
+    cfg = xprize_cfg()
+    eps = epsilon_grid(N_EPS).numpy()
+    for tag in ("cold", "warm"):
+        reset_launches()
+        t0 = time.perf_counter()
+        res = train_predict_prescribe(
+            WEIGHTS, eps, CLI_START, days[T_HIST - 1], CLI_START, days[-1],
+            files["data"], files["geos"], files["populations"],
+            npi_maxes=NPI_MAXES_DEFAULT, cfg=cfg,
+            generator=torch.Generator().manual_seed(0), dtype=F32,
+            device=device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = read_launches()
+        stages = " ".join(f"{k}={v:.3f}s" for k, v in
+                          res.stage_seconds.items())
+        log(f"realistic train_predict_prescribe {tag}: wall={wall:.3f}s "
+            f"{stages} launches={n}")
+    check_xprize_outputs(res, eps, device, "realistic")
+    check(n["ekf3"] >= 4 and n["ekf6"] == N_EPS // CHUNK,
+          f"realistic: launches {n}")
+    t0 = time.perf_counter()
+    small = csv_batches(files, days, cfg)
+    t1 = time.perf_counter()
+    latest = csv_batches(wide, days, cfg)
+    t2 = time.perf_counter()
+    same = same_batches(small, latest)
+    log(f"realistic: batches from the OxCGRT_latest file equal the minimal "
+        f"file's bit for bit: {same} (loaded in {t2 - t1:.3f}s against "
+        f"{t1 - t0:.3f}s)")
+    check(same, "realistic: the latest-schema batches differ")
+    return n
+
+
+def slice5_phase(device, main_res, bt_syn, bf_syn, files, days):
+    """Slice 5: the standalone trainer and prescriptor, AR-alpha, the
+    pre-generic 6-state EKS, Rt, smoothing, filter health and the
+    realistic-artefact data, through the user's entry points (the trainer
+    on the CLI phase's CSVs ``files`` over ``days``). Returns the EKS
+    kernels' launches on the trainer's and the prescriptor's warm runs."""
+    tr = trainer_phase(device, files, days)
+    pr = prescriber_phase(device, tr, main_res, bt_syn, bf_syn)
+    new_case_phase(device)
+    ar_phase(device, tr)
+    rt_smoothing_phase(device, tr)
+    realistic_phase(device)
+    return {"train": tr["launches"], "prescribe": pr["launches"]}
+
+
 def kernel_entries(measured, xprize_launches, stencil_cases, sim_launches,
-                   pairwise_cases, cli_launches, backtest):
+                   pairwise_cases, cli_launches, backtest, slice5_launches):
     """One entry per kernel for the JSON line: its launches on its path's
     warm run, its largest error against the plain version, and kernel,
     plain-version, bound and library times at its largest timed shape
@@ -1682,11 +2278,14 @@ def kernel_entries(measured, xprize_launches, stencil_cases, sim_launches,
             shape=f"T={big['T']} B={big['B']} ({big['tag']})"))
         kernels[-1]["cli_launches"] = cli_launches[name]
         if name == "ekf6":
+            kernels[-1]["prescribe_launches"] = \
+                slice5_launches["prescribe"][name]
             active = next(m for m in measured[name]
                           if m["tag"] == "per-capita, control active")
             kernels[-1].update(active_ms=active["ms"],
                                active_plain_ms=active["plain_ms"])
         else:
+            kernels[-1]["train_launches"] = slice5_launches["train"][name]
             bt_bound, bt_by = ekf_bound(name, backtest["T"], backtest["B"])
             kernels[-1].update(
                 max_abs_err=max(kernels[-1]["max_abs_err"],
@@ -1764,7 +2363,7 @@ def main():
         measured.setdefault(name, []).append(
             compare_kernel(name, tag, args, device, bounds, timed))
     small_reference_check(device)
-    _, _, xprize_launches = main_path(device, bt, bf, actual)
+    main_res, _, xprize_launches = main_path(device, bt, bf, actual)
     nnls_counts(device, bt)
 
     # the spatial stack (slice 2)
@@ -1776,15 +2375,19 @@ def main():
     roofline_phase(device)
 
     # the XPRIZE product's own entry point and the backtest (slice 3)
-    cli_launches, _ = cli_phase(device)
+    cli_launches, _, cli_files = cli_phase(device)
     backtest, _ = backtest_phase(device, bt)
 
     # the generic EKF/EKS core and the regressions (slice 4)
     vmap_phase(device, bt, bf, actual)
 
+    # the standalone trainer and prescriptor, AR-alpha, Rt, smoothing,
+    # filter health and the realistic-artefact data (slice 5)
+    slice5_launches = slice5_phase(device, main_res, bt, bf, *cli_files)
+
     kernels = kernel_entries(measured, xprize_launches, stencil_cases,
                              sim_launches, pairwise_cases, cli_launches,
-                             backtest)
+                             backtest, slice5_launches)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -17,6 +17,7 @@ from typing import Sequence
 import numpy as np
 
 from ..utils.dates import date_range_days, num_days_between
+from ..utils.math import host_array
 from .csvio import (csv_cell, csv_line, parse_floats, read_csv_columns,
                     write_csv_rows)
 from .oxford import date_numbers, geo_ids_of
@@ -36,7 +37,7 @@ def write_predictions_csv(path, geo_ids: Sequence[str], start_date: str,
     """predicted_daily_new_cases: (R, T) array or tensor. Writes the XPRIZE
     schema; each value as its shortest round-trip decimal (repr), a NaN as
     an empty cell (as pandas writes it)."""
-    pred = np.asarray(_numpy(predicted_daily_new_cases), float)
+    pred = np.asarray(host_array(predicted_daily_new_cases), float)
     R, T = pred.shape
     dates = date_range_days(start_date, T)
     flag = int(bool(is_specialty))
@@ -57,7 +58,7 @@ def write_prescriptions_csv(path, geo_ids: Sequence[str], start_date: str,
     once each (a geo's quoted name fields, the dates, each row of levels):
     the bytes the csv module writes row by row."""
     npi_columns = list(npi_columns or OXFORD_NPI_COLUMNS)
-    u = np.asarray(_numpy(prescriptions), float)
+    u = np.asarray(host_array(prescriptions), float)
     n_idx, R, T, P = u.shape
     levels = np.rint(u).astype(np.int64).reshape(-1, P)
     if P and levels.min() >= 0 and levels.max() <= 9:
@@ -120,10 +121,3 @@ def read_future_ip(path, geo_ids: Sequence[str], start_date: str,
             filled = sched[t]
         out[r] = sched
     return out
-
-
-def _numpy(a):
-    """A tensor (on any device) or array-like as NumPy."""
-    if hasattr(a, "detach"):
-        return a.detach().cpu().numpy()
-    return a

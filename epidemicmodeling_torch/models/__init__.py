@@ -1,12 +1,17 @@
 from .base import EKFSystem
-from .si_alpha import si_alpha_step_fields, si_alpha_ekf_system
-from .costate import si_alpha_costate_ekf_system
+from .si_alpha import (si_controlled_rollout, si_alpha_step,
+                       si_alpha_step_fields, si_alpha_controlled_rollout,
+                       SIAlphaParams, si_alpha_ekf_system)
+from .costate import si_alpha_costate_ekf_system, bang_bang_fill
 from .backward import (si_alpha_backward_ekf_system,
                        si_alpha_costate_backward_ekf_system)
 from .batch_last import (si_alpha_ekf_system_bl,
                          si_alpha_costate_ekf_system_bl)
 
-__all__ = ["EKFSystem", "si_alpha_step_fields", "si_alpha_ekf_system",
-           "si_alpha_costate_ekf_system", "si_alpha_backward_ekf_system",
+__all__ = ["EKFSystem", "si_controlled_rollout", "si_alpha_step",
+           "si_alpha_step_fields", "si_alpha_controlled_rollout",
+           "SIAlphaParams", "si_alpha_ekf_system",
+           "si_alpha_costate_ekf_system", "bang_bang_fill",
+           "si_alpha_backward_ekf_system",
            "si_alpha_costate_backward_ekf_system", "si_alpha_ekf_system_bl",
            "si_alpha_costate_ekf_system_bl"]

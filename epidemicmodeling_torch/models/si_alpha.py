@@ -1,19 +1,52 @@
-"""SI-alpha model: the controlled rollout step and the 3-state EKF system.
+"""SI and SI-alpha models: the rollouts, the controlled step, the params
+constructor and the 3-state EKF system.
 
-Counterpart of epidemicmodeling_tpu/models/si_alpha.py:46,138-231. The state
-is (s, i, alpha); alpha relaxes towards b + a'(u_max - u) with rate gamma
-(Tools/SIalpha_Controlled.m:24-28). The EKF system is
-Tools/SIAlphaModelEKF.m: state update, Jacobian, the NEWCASES (x = s i alpha)
-and TOTALCASES (x = 1 - s) observations and the hard margins, in the
-batched callback convention of models/base.py.
+Counterpart of epidemicmodeling_tpu/models/si_alpha.py. The SI model with a
+prescribed alpha(t) is Tools/SI_Controlled.m:19-22 (the first output
+sample is the initial condition). The SI-alpha state is (s, i, alpha);
+alpha relaxes towards b + a'(u_max - u) with rate gamma, with optional
+Gaussian process noise per state (Tools/SIalpha_Controlled.m:24-28; the
+outputs drop the initial condition, :30-32). The EKF system is
+Tools/SIAlphaModelEKF.m: state update, Jacobian, the NEWCASES
+(x = s i alpha) and TOTALCASES (x = 1 - s) observations and the hard
+margins, in the batched callback convention of models/base.py.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
+import numpy as np
 import torch
 
-from ..utils.math import clip_hi_lo, clip_lo_hi
+from ..utils.device import resolve_device
+from ..utils.math import (as_device_tensor, clip_hi_lo, clip_lo_hi,
+                          float_tensor)
 from .base import EKFSystem, stack_matrix
+
+
+def si_controlled_rollout(alpha, beta, s0, i0, K, dt, device=None):
+    """SI model with prescribed alpha(t): returns (s, i), each (..., K),
+    the first sample the initial condition (Tools/SI_Controlled.m). alpha:
+    a scalar, (K,) or a batch (..., K) of series; s0 and i0 broadcast
+    against its batch. Runs on ``device``, else where ``alpha`` lies when it
+    is a tensor, else on the CUDA card."""
+    dev = resolve_device(device, alpha)
+    alpha = float_tensor(alpha, dev)
+    if alpha.dim() == 0:
+        alpha = alpha.expand(K)
+    alpha = alpha[..., :K]
+    s, i = (float_tensor(v, dev).to(alpha.dtype) for v in (s0, i0))
+    batch = torch.broadcast_shapes(alpha.shape[:-1], s.shape, i.shape)
+    s, i = s.expand(batch), i.expand(batch)
+    traj_s, traj_i = [], []
+    for k in range(K):
+        a_t = alpha[..., k]
+        traj_s.append(s)
+        traj_i.append(i)
+        s, i = (clip_lo_hi(s - dt * a_t * s * i, 0.0, 1.0),
+                clip_lo_hi(i + dt * (a_t * s * i - beta * i), 0.0, 1.0))
+    return torch.stack(traj_s, dim=-1), torch.stack(traj_i, dim=-1)
 
 
 def si_alpha_step_fields(s, i, al, u_t, n_s, n_i, n_al, params):
@@ -32,6 +65,82 @@ def si_alpha_step_fields(s, i, al, u_t, n_s, n_i, n_al, params):
              + n_al * params["alpha_noise_std"])
     a1 = clip_lo_hi(al + dt * drive, params["alpha_min"], params["alpha_max"])
     return s1, i1, a1
+
+
+def si_alpha_step(state, u_t, noise_t, params):
+    """One Euler step of the controlled SI-alpha model with additive process
+    noise inside the derivative (Tools/SIalpha_Controlled.m:25-27).
+    state: (..., 3) [s, i, alpha]; u_t: (..., p); noise_t: (..., 3)
+    standard normal draws (zeros for the deterministic model)."""
+    s1, i1, a1 = si_alpha_step_fields(state[..., 0], state[..., 1],
+                                      state[..., 2], u_t, noise_t[..., 0],
+                                      noise_t[..., 1], noise_t[..., 2],
+                                      params)
+    return torch.stack([s1, i1, a1], dim=-1)
+
+
+def si_alpha_controlled_rollout(u, s0, i0, alpha0, u_max, alpha_min,
+                                alpha_max, gamma, a, b, beta, s_noise_std,
+                                i_noise_std, alpha_noise_std, K, dt,
+                                generator: Optional[torch.Generator] = None,
+                                noise=None, device=None):
+    """Roll the controlled SI-alpha model for K steps, the initial condition
+    dropped from the outputs (Tools/SIalpha_Controlled.m:30-32).
+
+    u: (p, K) NPI schedule (input-major like the reference) or (K, p).
+    noise: the (K, 3) standard normal draws of the stochastic model (e.g.
+    the JAX package's, for parity); else drawn from ``generator`` (on its
+    own device); with neither the model is noise-free, as with key=None.
+    Returns (s, i, alpha), each (K,). Runs on ``device``, else where ``u``
+    lies when it is a tensor, else on the CUDA card."""
+    dev = resolve_device(device, u)
+    u = float_tensor(u, dev)
+    fd = u.dtype
+    if u.dim() == 2 and u.shape[1] == K and u.shape[0] != K:
+        u = u.T  # accept reference-style (p, K)
+    f = lambda v: float_tensor(v, dev).to(fd)
+    params = {
+        "dt": dt, "beta": f(beta), "gamma": f(gamma), "a": f(a).reshape(-1),
+        "b": f(b), "u_max": f(u_max).reshape(-1),
+        "alpha_min": f(alpha_min), "alpha_max": f(alpha_max),
+        "s_noise_std": f(s_noise_std), "i_noise_std": f(i_noise_std),
+        "alpha_noise_std": f(alpha_noise_std),
+    }
+    if noise is None and generator is not None:
+        noise = torch.randn((K, 3), generator=generator, dtype=fd,
+                            device=generator.device)
+    noise = (torch.zeros((K, 3), dtype=fd, device=dev) if noise is None
+             else f(noise))
+    state = torch.stack([f(s0), f(i0), f(alpha0)])
+    traj = []
+    for k in range(K):
+        state = si_alpha_step(state, u[k], noise[k], params)
+        traj.append(state)  # outputs exclude the initial condition
+    traj = torch.stack(traj)
+    return traj[:, 0], traj[:, 1], traj[:, 2]
+
+
+def SIAlphaParams(*, dt, beta, gamma, a, b, u_min, u_max, s_min, i_min,
+                  alpha_min, alpha_max, epsilon=np.nan, w=np.nan,
+                  sigma=1e6, dtype=None, device=None):
+    """The params dict of the SI-alpha EKF systems (the params struct
+    assembled at Tools/TrainPredictPrescribeNPI.m:202-224), as tensors of
+    ``dtype`` (float64 by default) on ``device`` (the CUDA card unless
+    told otherwise)."""
+    dev = resolve_device(device)
+    fd = dtype or torch.float64
+
+    def arr(v):
+        return as_device_tensor(np.asarray(v, float), dev).to(fd)
+
+    return {
+        "dt": arr(dt), "beta": arr(beta), "gamma": arr(gamma),
+        "a": arr(a).reshape(-1), "b": arr(b),
+        "u_min": arr(u_min).reshape(-1), "u_max": arr(u_max).reshape(-1),
+        "s_min": arr(s_min), "i_min": arr(i_min),
+        "alpha_min": arr(alpha_min), "alpha_max": arr(alpha_max),
+        "epsilon": arr(epsilon), "w": arr(w), "sigma": arr(sigma),
+    }
 
 
 def check_obs_type(obs_type):

@@ -34,7 +34,7 @@ import torch
 
 from ..models.base import EKFSystem
 from ..utils.device import resolve_device
-from ..utils.math import symmetrize
+from ..utils.math import as_device_tensor, symmetrize
 
 
 class EKFResult(NamedTuple):
@@ -115,13 +115,6 @@ def _matlab_pinv(A):
             @ U.transpose(-1, -2)) * scale
 
 
-def _as_tensor(a, device, dtype=None):
-    if isinstance(a, torch.Tensor):
-        return a.to(device=device, dtype=dtype or a.dtype)
-    # np.array copies: arrays handed over from JAX are read-only
-    return torch.as_tensor(np.array(a), dtype=dtype, device=device)
-
-
 def _hessian_terms(fn, dim, batch, args):
     """A system's second-order terms, broadcast to the batch shape."""
     t1, t2, t3, t4 = fn(*args)
@@ -171,8 +164,9 @@ def ekf_smoother(
     like = next((a for a in (x, s_init, u)
                  if isinstance(a, torch.Tensor)), None)
     dev = resolve_device(device, like)
-    x, u = _as_tensor(x, dev), _as_tensor(u, dev)
-    s_init, Ps_init = _as_tensor(s_init, dev), _as_tensor(Ps_init, dev)
+    x, u = as_device_tensor(x, dev), as_device_tensor(u, dev)
+    s_init = as_device_tensor(s_init, dev)
+    Ps_init = as_device_tensor(Ps_init, dev)
     dtype = torch.promote_types(torch.promote_types(x.dtype, s_init.dtype),
                                 Ps_init.dtype)
     kw = dict(dtype=dtype, device=dev)
@@ -188,18 +182,19 @@ def ekf_smoother(
     Ps_init = Ps_init.to(dtype).reshape(*batch, m, m)
     fill = lambda a, shape: (torch.full(shape, float("nan"), **kw)
                              if a is None else
-                             _as_tensor(a, dev, dtype).expand(shape))
+                             as_device_tensor(a, dev, dtype).expand(shape))
     s_final = fill(s_final, (*batch, m))
     Ps_final = fill(Ps_final, (*batch, m, m))
     w_bar = (torch.zeros(m, **kw) if w_bar is None
-             else _as_tensor(w_bar, dev, dtype))
+             else as_device_tensor(w_bar, dev, dtype))
     v_bar = (torch.zeros(n, **kw) if v_bar is None
-             else _as_tensor(v_bar, dev, dtype))
+             else as_device_tensor(v_bar, dev, dtype))
     leaf = lambda t: t.to(dtype) if t.is_floating_point() else t
-    params = {k: leaf(_as_tensor(v, dev)) for k, v in params.items()}
+    params = {k: leaf(as_device_tensor(v, dev)) for k, v in params.items()}
 
-    Q_seq, _ = _normalize_cov(_as_tensor(Q, dev, dtype), T, batch, "Q")
-    R_seq, fixed_R = _normalize_cov(_as_tensor(R, dev, dtype), T, batch, "R")
+    Q_seq, _ = _normalize_cov(as_device_tensor(Q, dev, dtype), T, batch, "Q")
+    R_seq, fixed_R = _normalize_cov(as_device_tensor(R, dev, dtype), T,
+                                    batch, "R")
     adaptive_R = (beta != 1.0) and (fixed_R or adaptive_R_always)
     sym = symmetrize if symmetrize_covs else (lambda M: M)
     full = outputs == "full"
@@ -397,13 +392,13 @@ def backward_ekf_smoother(system, u, x, params, s_init, Ps_init,
     like = next((a for a in (x, s_final, u)
                  if isinstance(a, torch.Tensor)), None)
     dev = resolve_device(kw.pop("device", None), like)
-    s_final = _as_tensor(s_final, dev)
+    s_final = as_device_tensor(s_final, dev)
     nb = s_final.dim() - 1
-    x = _as_tensor(x, dev)
+    x = as_device_tensor(x, dev)
     if x.dim() == nb + 1:
         x = x[..., None]
     flip = lambda a: None if a is None else torch.flip(a, dims=(nb,))
-    res = ekf_smoother(system, flip(_as_tensor(u, dev)), flip(x), params,
+    res = ekf_smoother(system, flip(as_device_tensor(u, dev)), flip(x), params,
                        s_final, Ps_final, s_init, Ps_init, w_bar, v_bar, Q, R,
                        device=dev, **kw)
     return EKFResult(*(flip(f) for f in res))

@@ -16,6 +16,9 @@ from .checkpoint import (trained_params_from_numpy, region_init_from_numpy,
                          save_trained_params, load_trained_params,
                          save_trained_params_mat, load_trained_params_mat)
 from .forecast_quality import forecast_quality_assessment, BacktestResult
+from . import forecast_quality, prescribe, train
+from .prescribe import prescribe_from_checkpoint
+from .train import train_npi_prescriptor
 
 __all__ = [
     "PipelineConfig",
@@ -39,4 +42,6 @@ __all__ = [
     "load_trained_params_mat",
     "forecast_quality_assessment",
     "BacktestResult",
+    "prescribe_from_checkpoint",
+    "train_npi_prescriptor",
 ]

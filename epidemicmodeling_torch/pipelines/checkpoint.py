@@ -20,6 +20,7 @@ import json
 
 import numpy as np
 
+from ..utils.math import host_array
 from .core import RegionInit, TrainedRegionParams, to_tensor
 
 _ARRAYS = ("a1", "b1", "a2", "b2")
@@ -27,11 +28,6 @@ _ARRAYS = ("a1", "b1", "a2", "b2")
 
 def _fields(d) -> dict:
     return d._asdict() if hasattr(d, "_asdict") else dict(d)
-
-
-def _numpy(v) -> np.ndarray:
-    return np.asarray(v.detach().cpu().numpy() if hasattr(v, "detach")
-                      else v)
 
 
 def trained_params_from_numpy(d, dtype=None,
@@ -64,8 +60,8 @@ def save_trained_params(path, trained: TrainedRegionParams) -> None:
     missing): the arrays in their own dtype, the names as a JSON list."""
     np.savez(_with_suffix(path, ".npz"),
              names=json.dumps(list(trained.names)),
-             population=_numpy(trained.population),
-             **{k: _numpy(getattr(trained, k)) for k in _ARRAYS})
+             population=host_array(trained.population),
+             **{k: host_array(getattr(trained, k)) for k in _ARRAYS})
 
 
 def load_trained_params(path) -> TrainedRegionParams:
@@ -125,8 +121,8 @@ def save_trained_params_mat(path, trained: TrainedRegionParams) -> str:
     tbl = np.empty((R + 1, 7), dtype=object)
     tbl[0] = ["CountryName", "RegionName", "N_population",
               "coef0", "coef", "coef0_2", "coef_2"]
-    pop = _numpy(trained.population)
-    a1, b1, a2, b2 = (_numpy(getattr(trained, k)) for k in _ARRAYS)
+    pop = host_array(trained.population)
+    a1, b1, a2, b2 = (host_array(getattr(trained, k)) for k in _ARRAYS)
     for r, name in enumerate(trained.names):
         tbl[r + 1, 0], tbl[r + 1, 1] = _split_geo(name)
         tbl[r + 1, 2] = float(pop[r])

@@ -52,8 +52,10 @@ from epidemicmodeling_torch.spatial import (PopulationSimConfig,
 from epidemicmodeling_torch.spatial.agents import default_environment
 from epidemicmodeling_torch.spatial.walkers import walking_sources_sim
 
-from chip_smoke import (EKF3_BOUNDS, PAIRWISE_ROW_BOUND, law_rows,
-                        per_capita_case, pinv_ranks_agree, row_err)
+from chip_smoke import (EKF3_BOUNDS, FILTER_TYPES, LM_COST_RTOL, LM_RTOL,
+                        PAIRWISE_ROW_BOUND, SMALL_REF_BOUNDS, law_rows,
+                        lm_costs, per_capita_case, pinv_ranks_agree,
+                        row_err, rt_series, sweep_errs)
 from tests._torch_helpers import (make_inputs, masked_err, packed_args,
                                   scaled_err)
 
@@ -643,3 +645,249 @@ def test_rt_estimator_on_the_card_matches_the_cpu(cuda, order):
         torch.testing.assert_close(getattr(got, f).cpu(), getattr(ref, f),
                                    rtol=1e-9, atol=1e-12, equal_nan=True,
                                    msg=lambda m, f=f: f"{f}: {m}")
+
+
+def _ar_test_series(T=240):
+    rng = np.random.default_rng(6)
+    y = np.zeros(T)
+    e = 0.1 * rng.standard_normal(T)
+    for t in range(2, T):
+        y[t] = 1.5 * y[t - 1] - 0.7 * y[t - 2] + e[t]
+    return y + 0.5 * np.sin(0.05 * np.arange(T))
+
+
+def test_ar_and_rollouts_on_the_card_match_the_cpu(cuda):
+    """ar_fit (fb, ls), ar_fit_burg, ar_forecast (with passed-in draws) and
+    both SI rollouts, from NumPy inputs without device= (so on the card),
+    against device="cpu", float64: the AR pieces at rtol 1e-10, the
+    rollouts at rtol 1e-12 (the CPU tests' bounds against the JAX
+    package)."""
+    from epidemicmodeling_torch.models import (si_alpha_controlled_rollout,
+                                               si_controlled_rollout)
+    from epidemicmodeling_torch.ops import ar_fit, ar_fit_burg, ar_forecast
+    y = _ar_test_series()
+    z = np.random.default_rng(1).standard_normal(30)
+    a8 = ar_fit(y, 8, device="cpu")[0].numpy()
+    for run in (lambda **d: ar_fit(y, 8, "fb", **d),
+                lambda **d: ar_fit(y, 8, "ls", **d),
+                lambda **d: ar_fit_burg(y, 8, **d),
+                lambda **d: (ar_forecast(y, a8, 0.01, 30, noise=z, **d),)):
+        got, ref = run(), run(device="cpu")
+        for g, r in zip(got, ref):
+            assert g.device.type == "cuda"
+            torch.testing.assert_close(g.cpu(), r, rtol=1e-10, atol=0)
+    rng = np.random.default_rng(2)
+    kw = dict(s0=0.99, i0=1e-3, alpha0=0.4, u_max=np.full(12, 3.0),
+              alpha_min=1e-8, alpha_max=100.0, gamma=1 / 7,
+              a=0.004 * rng.random(12), b=0.2, beta=0.2, s_noise_std=1e-4,
+              i_noise_std=1e-5, alpha_noise_std=1e-3, K=70, dt=1.0)
+    u = rng.integers(0, 3, (70, 12)).astype(float)
+    noise = rng.standard_normal((70, 3))
+    alpha = 0.3 + 0.05 * rng.standard_normal(60)
+    for run in (lambda **d: si_alpha_controlled_rollout(u, noise=noise,
+                                                        **kw, **d),
+                lambda **d: si_controlled_rollout(alpha, 0.2, 0.99, 1e-3, 60,
+                                                  1.0, **d)):
+        got, ref = run(), run(device="cpu")
+        for g, r in zip(got, ref):
+            assert g.device.type == "cuda"
+            torch.testing.assert_close(g.cpu(), r, rtol=1e-12, atol=0)
+
+
+def test_ar_alpha_prescription_on_the_card_matches_the_cpu(cuda):
+    """ar_alpha_prescription from the same draws on the card (its default)
+    and on the CPU, float64, at rtol 1e-9 / atol 1e-12."""
+    from epidemicmodeling_torch.control.pareto import npi_level_draws
+    from epidemicmodeling_torch.pipelines.prescribe import \
+        ar_alpha_prescription
+    rng = np.random.default_rng(2)
+    maxes = np.array([3, 3, 2, 4, 2, 3, 2, 4, 2, 3, 2, 4])
+    g = torch.Generator().manual_seed(3)
+    kw = dict(alpha_train=0.2 + 0.05 * np.sin(0.05 * np.arange(200))
+              + 0.005 * rng.standard_normal(200),
+              a_coef=0.004 * rng.random(12), b_coef=0.05, beta_model=0.2,
+              gamma_model=1 / 7, npi_mins=np.zeros(12), npi_maxes=maxes,
+              npi_weights=np.ones(12), s0=0.99, i0=1e-3, n_ahead=30,
+              n_monte_carlo=8,
+              ar_noise=torch.randn(30, generator=g,
+                                   dtype=torch.float64).numpy(),
+              u_draw=npi_level_draws(g, (8, 30, 12), np.zeros(12),
+                                     maxes).numpy())
+    got, ref = ar_alpha_prescription(**kw), ar_alpha_prescription(
+        **kw, device="cpu")
+    for f in ref._fields:
+        assert getattr(got, f).device.type == "cuda"
+        torch.testing.assert_close(getattr(got, f).cpu(), getattr(ref, f),
+                                   rtol=1e-9, atol=1e-12,
+                                   msg=lambda m, f=f: f"{f}: {m}")
+
+
+def test_new_case_ekf_optimal_npi_on_the_card_matches_the_cpu(cuda):
+    """The pre-generic 6-state EKS on chip_smoke's per-capita inputs with
+    active control (100 lanes, T = 532, every P- below cond 1e8), adaptive
+    R (beta 0.9), float64, from NumPy inputs (so on the card) against the
+    same on the CPU: the prescriptions equal, the epidemic states at rtol
+    1e-9 / atol 1e-12, the costates and covariances at the costate bound
+    rtol 1e-4 / atol 1e-8 (tests/test_torch_ekf_generic.py)."""
+    from epidemicmodeling_torch.pipelines.prescribe import \
+        new_case_ekf_optimal_npi
+    cp = per_capita_case(True)
+    t = lambda a: np.moveaxis(np.asarray(a, np.float64), -1, 0)[:100]
+    args = dict(u=np.asarray(cp["u"], np.float64).transpose(2, 0, 1)[:100],
+                x=t(cp["x"]),
+                params={k: t(v) for k, v in cp["params"].items()},
+                s_init=t(cp["s_init"]), Ps_init=t(cp["Ps_init"]),
+                s_final=t(cp["s_final"]), Ps_final=t(cp["Ps_final"]),
+                Q=t(cp["Q"]), R=t(cp["Rv"]), beta=0.9, gamma=0.995)
+    got = new_case_ekf_optimal_npi(**args)
+    ref = new_case_ekf_optimal_npi(**args, device="cpu")
+    assert got.s_smooth.device.type == "cuda"
+    assert torch.equal(got.u_opt_smooth.cpu(), ref.u_opt_smooth)
+    for f in ("s_minus", "s_plus", "s_smooth"):
+        g, r = getattr(got, f).cpu(), getattr(ref, f)
+        torch.testing.assert_close(g[..., :3], r[..., :3], rtol=1e-9,
+                                   atol=1e-12)
+        torch.testing.assert_close(g[..., 3:], r[..., 3:], rtol=1e-4,
+                                   atol=1e-8)
+    torch.testing.assert_close(got.P_smooth.cpu(), ref.P_smooth, rtol=1e-4,
+                               atol=1e-8)
+
+
+def _deaths_batches(n_regions, t_hist, horizon, seed):
+    """Synthetic regions with their cumulative deaths (1% of the cases):
+    (training batch, full batch, the generating coefficients)."""
+    from epidemicmodeling_torch.data import (build_region_batch,
+                                             preprocess_region,
+                                             synthetic_regions)
+    truth = synthetic_regions(n_regions, t_hist + horizon, seed=seed)
+    sers = []
+    for tr in truth.values():
+        nc = tr["s"] * tr["i"] * tr["alpha"] * tr["pop"]
+        sers.append(preprocess_region(np.cumsum(nc)[:t_hist],
+                                      np.cumsum(0.01 * nc)[:t_hist],
+                                      tr["u"][:t_hist], tr["pop"]))
+    names = list(truth)
+    a = np.stack([tr["a"] for tr in truth.values()])
+    b = np.array([tr["b"] for tr in truth.values()])
+    coefs = dict(names=names, population=[tr["pop"] for tr in
+                                          truth.values()],
+                 a1=a, b1=b, a2=a, b2=b)
+    return (build_region_batch(sers, names),
+            build_region_batch(sers, names, horizon=horizon), coefs)
+
+
+def test_train_npi_prescriptor_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """The training entry point with its default configuration (the
+    generic core, NNLS) on the card (its default) against the CPU, float64,
+    on a full-rank regression design (400 days: more NPI level changes than
+    NPIs): coefficients, smoothed states and mortality estimates at rtol
+    1e-9 / atol 1e-12; its .npz holds the card's coefficients."""
+    from epidemicmodeling_torch.data import NPI_MAXES_DEFAULT
+    from epidemicmodeling_torch.pipelines import (load_trained_params,
+                                                  train_npi_prescriptor)
+    bt, _, _ = _deaths_batches(3, 400, 0, seed=5)
+    ckpt = str(tmp_path / "params.npz")
+    got = train_npi_prescriptor(bt, np.zeros(12), NPI_MAXES_DEFAULT, 400,
+                                trained_params_file=ckpt,
+                                dtype=torch.float64)
+    ref = train_npi_prescriptor(bt, np.zeros(12), NPI_MAXES_DEFAULT, 400,
+                                dtype=torch.float64, device="cpu")
+    for k in ("a1", "b1", "a2", "b2"):
+        g = getattr(got[0].trained, k)
+        assert g.device.type == "cuda"
+        torch.testing.assert_close(g.cpu(), getattr(ref[0].trained, k),
+                                   rtol=1e-9, atol=1e-12)
+    torch.testing.assert_close(got[0].s_smooth_round2.cpu(),
+                               ref[0].s_smooth_round2, rtol=1e-9, atol=1e-12)
+    for f in ref[1]._fields:
+        np.testing.assert_allclose(getattr(got[1], f), getattr(ref[1], f),
+                                   rtol=1e-9, atol=1e-12, err_msg=f)
+    np.testing.assert_array_equal(load_trained_params(ckpt).a2,
+                                  got[0].trained.a2.cpu().numpy())
+
+
+def test_prescribe_from_checkpoint_runs_ekf6_on_the_card(cuda):
+    """prescribe_from_checkpoint with the kernel backend from NumPy batches
+    (so on the card: one ekf6 launch a chunk) against the same call on the
+    CPU (the plain versions), float32, from the generating coefficients, at
+    chip_smoke's SMALL_REF_BOUNDS. Not float64: the kernels are float32,
+    and on this synthetic data the sweep's prior covariances reach cond
+    ~1e17, where the generic core's card and CPU gains part (ROADMAP Queue
+    C)."""
+    from epidemicmodeling_torch.control import epsilon_grid
+    from epidemicmodeling_torch.data import NPI_MAXES_DEFAULT
+    from epidemicmodeling_torch.pipelines import (
+        PipelineConfig, prescribe_from_checkpoint, trained_params_from_numpy)
+    from epidemicmodeling_torch.pipelines.core import (device_batch,
+                                                       forecast_scenarios,
+                                                       region_init)
+    bt, bf, coefs = _deaths_batches(6, 100, 20, seed=1)
+    cfg = PipelineConfig(backend="pallas", smoother_gain="solve",
+                         pareto_chunk=8, num_monte_carlo=16)
+    u_random = torch.randint(0, 3, (16, 20, 12),
+                             generator=torch.Generator().manual_seed(0))
+
+    def run(dev):
+        tr = trained_params_from_numpy(coefs, torch.float32, dev)
+        init = region_init(device_batch(bt, torch.float32, dev)[0], cfg,
+                           torch.float32, dev)
+        _, s_hist = forecast_scenarios(bf, tr, init, np.ones(12),
+                                       np.zeros(12), NPI_MAXES_DEFAULT, 100,
+                                       cfg, dtype=torch.float32, device=dev)
+        # NumPy batches, no device= for the card
+        return prescribe_from_checkpoint(
+            tr, bf, s_hist.cpu().numpy(), init, epsilon_grid(32).numpy(),
+            np.ones(12), np.zeros(12), NPI_MAXES_DEFAULT, 100, cfg,
+            dtype=torch.float32, device=None if dev == "cuda" else dev,
+            u_random=u_random.float())
+
+    before = ekf6_kernel.launches
+    kp, km = run("cuda")
+    assert ekf6_kernel.launches - before == 4
+    pp, pm = run("cpu")
+    assert kp["u_prescribed"].device.type == "cuda"
+    for k, v in sweep_errs(kp, pp, km, pm).items():
+        assert v <= SMALL_REF_BOUNDS[k], (k, v)
+
+
+def test_rt_and_smoothing_on_the_card_match_the_cpu(cuda):
+    """The three windowed Rt estimators, both moving averages, Tikhonov
+    and smooth_series's five filter types, from NumPy inputs (so on the
+    card) against device="cpu", float64, at rtol 1e-9 / atol 1e-12; the
+    nonlinear least squares at chip_smoke's LM_RTOL and by co-optimality
+    (its LM fixes a fit only to ~1e-9)."""
+    from epidemicmodeling_torch.ops import smooth_series, tikhonov_smooth
+    from epidemicmodeling_torch.rt import (rt_expfit_gen_ratios,
+                                           rt_expfit_log_lin_reg,
+                                           rt_expfit_nonlin_ls)
+    from epidemicmodeling_torch.utils import (causal_moving_average,
+                                              filtfilt_ma)
+    x = rt_series()
+    x2 = x.copy()
+    x2[60] = 0.0
+    tol = dict(rtol=1e-9, atol=1e-12, equal_nan=True)
+    runs = [lambda **d: rt_expfit_gen_ratios(x2, 7, 3, 1.0, **d),
+            lambda **d: rt_expfit_log_lin_reg(x, 14, 1.0, False, **d),
+            lambda **d: rt_expfit_log_lin_reg(x, 14, 1.0, True, **d),
+            lambda **d: (causal_moving_average(x.reshape(4, 50), 7, **d),
+                         filtfilt_ma(x.reshape(4, 50), 20, 0, **d),
+                         tikhonov_smooth(x / 1e3, 2, 10.0, **d))]
+    runs += [lambda ft=ft, **d: (smooth_series(x, ft, **d),)
+             for ft in FILTER_TYPES]
+    for run in runs:
+        for g, r in zip(run(), run(device="cpu")):
+            assert g.device.type == "cuda"
+            torch.testing.assert_close(g.cpu(), r, **tol)
+    for causal in (True, False):
+        got = rt_expfit_nonlin_ls(x2, 14, 1.0, causal)
+        ref = rt_expfit_nonlin_ls(x2, 14, 1.0, causal, device="cpu")
+        for k in (0, 1, 3):
+            torch.testing.assert_close(got[k].cpu(), ref[k], rtol=LM_RTOL,
+                                       atol=0)
+        torch.testing.assert_close(
+            got[2].cpu(), ref[2], rtol=0,
+            atol=LM_RTOL * float(ref[2].abs().max()))
+        if causal:
+            np.testing.assert_allclose(lm_costs(x2, got[1], got[2], 14),
+                                       lm_costs(x2, ref[1], ref[2], 14),
+                                       rtol=LM_COST_RTOL, atol=0)
