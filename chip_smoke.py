@@ -97,7 +97,21 @@ CUDA toolkit (nvcc). In order, it:
    and smooth_series's five filter types, card against CPU in float64;
    filter_health on the trained states; train_predict_prescribe on the
    realistic-artefact frame's CSVs, cold then warm, and the OxCGRT_latest
-   form of that frame, whose batches equal the minimal file's bit for bit.
+   form of that frame, whose batches equal the minimal file's bit for bit;
+14. drives the theory studies and the ML stack on the card without
+   device=, each against the same call on the CPU (no kernel runs here):
+   the five SEIRP scenarios at dt = 0.1 (up to 40,000 steps), the
+   saturated-resource comparison, the early-phase observability rank and
+   eigenvalues (float64 at rtol 1e-9); the three shooting variants at
+   tests/test_analysis.py's settings with the Hamiltonian certificates on
+   the card's series; examples/lstm_forecast.py's 100-unit LSTM (250
+   epochs, a 30-day closed-loop forecast); a (32, 16)-unit forecaster with
+   each head trained 10 epochs on the card and on the CPU, at bounds that
+   cuDNN's TF32 fails (PERF.md); test04's deep stack (hidden
+   200, 200, 100, 50, 20, with and without the exp head) on 235 regions x
+   440 days x 37 features, 10 timed epochs, its peak memory and its
+   forward against the CPU's; the three SVR modes at n = 400, d = 12
+   (2,000 steps), ridge and ARX on each of the 235 regions.
 
 Every failed check raises, so the exit code is non-zero. Only when all
 phases pass does it print the kernel JSON line, the card's name and power
@@ -123,6 +137,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from epidemicmodeling_torch.analysis import (
+    SEIRP_SCENARIOS, obsv, run_seirp_scenario, seirp_early_eigen,
+    seirp_early_phase_matrix, si_alpha_hamiltonian_shooting,
+    si_alpha_multiplicative_shooting, si_continuous_control)
+from epidemicmodeling_torch.analysis.seirp_scenarios import (
+    N_POP, RATE_NAMES, scenario_schedules)
 from epidemicmodeling_torch.control import (epsilon_grid,
                                             pareto_front_mask_batched,
                                             random_npi_schedules)
@@ -140,6 +160,14 @@ from epidemicmodeling_torch.data import (NPI_MAXES_DEFAULT,
 from epidemicmodeling_torch.data.csvio import (parse_floats,
                                                read_csv_columns,
                                                write_csv_columns)
+from epidemicmodeling_torch.ml import (LSTMForecaster, arx_fit_predict,
+                                       lagged_features, long_weekend_feature,
+                                       ridge_regression, rollout_forecast,
+                                       standardize, svr_fit, svr_predict,
+                                       train_forecaster)
+from epidemicmodeling_torch.ml.svr import svr_objective
+from epidemicmodeling_torch.models import (seirp_rollout,
+                                           seirp_saturated_rollout)
 from epidemicmodeling_torch.ops.cuda import (build, ekf3_kernel, ekf6_kernel,
                                              pairwise_kernel, roofline_kernel,
                                              stencil_kernel)
@@ -359,6 +387,39 @@ FILTER_TYPES = ("BYPASS", "TIKHONOV", "MOVINGAVERAGE-CAUSAL",
 # (tests/test_torch_rt_smoothing.py)
 SLICE5_TOL = dict(rtol=1e-9, atol=1e-12)
 LM_RTOL, LM_COST_RTOL = 5e-9, 1e-11
+# slice 6: examples/seirp_scenarios.py's saturated comparison; the
+# shooting settings of tests/test_analysis.py; examples/lstm_forecast.py;
+# test04's deep stack and features; the SVR size of
+# test03ExpfitVsIPRegression.m:198-246. Float64 card against CPU at
+# SLICE6_TOL; the float32 LSTM's training (20 epochs from the same
+# weights) by its RMS residuals sqrt(loss) at LSTM_RMS_TOL (an output
+# difference of 1e-5 moves sqrt(loss) by at most 1e-5, whatever the loss),
+# the small forecaster's 10 epochs by their losses at LSTM_LOSS_RTOL and
+# every forward at LSTM_FWD_TOL: with cuDNN's TF32 in place of IEEE
+# float32 the small losses read >= 5.3 and the forwards >= 1.6 of these
+# bounds, IEEE <= 0.25 (scripts/lstm_tf32_probe.py, H100; the 100-unit
+# LSTM's 20 epochs cannot tell them apart: its one-input forward takes no
+# TF32); ARX by its forecast at ARX_FORECAST_TOL
+# and its fit by co-optimality (an AR(14) fit of a smooth alpha fixes the
+# coefficients only along its well-conditioned directions: port and JAX
+# differ by O(1) relative in some coefficients, by 1.0e-9 in the forecast
+# and 4.7e-14 in the residual cost, CPU run)
+SLICE6_TOL = dict(rtol=1e-9, atol=1e-12)
+SAT_K = 4000
+SHOOT_P, SHOOT_K, SHOOT_DT, SHOOT_RANDOM = 12, 500, 0.1, 10
+MULT_K, CONT_K = 400, 300
+SHOOT_U_MAX = np.array([3, 3, 2, 4, 2, 3, 2, 4, 2, 3, 2, 4], float)
+LSTM_EPOCHS, LSTM_TEST_DAYS = 250, 30
+LSTM_RMS_TOL = dict(rtol=1e-4, atol=1e-5)
+LSTM_FWD_TOL = dict(rtol=2e-5, atol=2e-5)
+LSTM_LOSS_RTOL = 1e-6
+SMALL_LSTM_HIDDEN, SMALL_LSTM_EPOCHS = (32, 16), 10
+DEEP_HIDDEN, DEEP_EPOCHS = (200, 200, 100, 50, 20), 10
+NPI_LAGS = (1, 7, 14)
+SVR_N, SVR_STEPS = 400, 2000
+ARX_ORDER = 14
+ARX_FORECAST_TOL = dict(rtol=1e-8, atol=1e-12)
+ARX_COST_RTOL = 1e-11
 
 
 def log(msg: str) -> None:
@@ -2259,6 +2320,468 @@ def slice5_phase(device, main_res, bt_syn, bf_syn, files, days):
     return {"train": tr["launches"], "prescribe": pr["launches"]}
 
 
+def shooting_certificates(res, eps, w, a, u_min, u_max, beta, gamma=None,
+                          c=None, optimal=True):
+    """tests/test_analysis_fuzz.py's structural checks of a shooting run,
+    from its own carried series (NumPy): the largest |H - sum of its terms|
+    over 1e-11 of the step's term scale (the largest term or intermediate
+    product; <= 1 passes), and, for the bang-bang law, whether no
+    single-NPI flip of u lowers H given the realized costates (H is linear
+    in u with coefficient phi). ``c`` selects the multiplicative model,
+    else ``gamma`` the additive one. w: (K, P)."""
+    s, i, al, lam, u, H = (np.asarray(v.double().cpu()) for v in (
+        res.s, res.i, res.alpha, res.lambdas, res.u, res.H))
+    w = np.broadcast_to(np.asarray(w, float), u.shape)
+    rho = lam[:, 0] - lam[:, 1] - (1.0 - eps)
+    if c is None:
+        drive = (u_max - u) @ a
+        last = lam[:, 2] * (-gamma * al + gamma * drive)
+        big = np.abs(lam[:, 2]) * gamma * (al + drive)
+        phi = eps * w - gamma * lam[:, 2:3] * a
+    else:
+        au = u @ a + c
+        last = -lam[:, 2] * al * au
+        big = np.abs(lam[:, 2]) * al * np.maximum(au, 1.0)
+        phi = eps * w - lam[:, 2:3] * al[:, None] * a
+    terms = np.stack([-rho * al * s * i, -beta * lam[:, 1] * i,
+                      eps * (w * u).sum(1), last])
+    scale = np.max(np.stack([np.abs(terms).max(0), np.abs(rho) * al,
+                             beta * np.abs(lam[:, 1]), big,
+                             np.full_like(s, 1e-300)]), 0)
+    h_ratio = float((np.abs(H - terms.sum(0)) / (1e-11 * scale)).max())
+    if not optimal:
+        return h_ratio, True
+    dH = phi * (u_max - u_min)
+    signed = np.where(u == u_min, dH, -dH)
+    floor = -1e-11 * np.maximum(1.0, np.abs(dH).max(1, keepdims=True))
+    return h_ratio, bool((signed >= floor).all())
+
+
+def rms_loss_ratio(card, cpu) -> float:
+    """max |sqrt(l_card) - sqrt(l_cpu)| over atol + rtol sqrt(l_cpu) of
+    LSTM_RMS_TOL, epoch by epoch (<= 1 passes): the RMS residual moves by
+    no more than the outputs do, while the loss's relative change grows
+    as the loss falls."""
+    a, b = np.sqrt(np.asarray(card)), np.sqrt(np.asarray(cpu))
+    return float(np.max(np.abs(a - b) / (LSTM_RMS_TOL["atol"]
+                                         + LSTM_RMS_TOL["rtol"] * b)))
+
+
+def _walls(run, device):
+    """(result, wall in s) of run() on ``device``, the card synchronized."""
+    t0 = time.perf_counter()
+    out = run()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def seirp_card_runs(device):
+    """The five scenarios on the card at the default dt: A and C through
+    run_seirp_scenario (no device=), B, D and E (T = 4,000 days each, K =
+    40,000 steps) batched as one leading dimension of seirp_rollout, since
+    one by one they took 38 s on an H100 (PERF.md). Returns
+    {name: (t, s, e, i, r, p)} and the wall."""
+    t0 = time.perf_counter()
+    out = {}
+    long = [n for n in SEIRP_SCENARIOS if SEIRP_SCENARIOS[n]["T"] == 4000]
+    for name in SEIRP_SCENARIOS:
+        if name not in long:
+            res = run_seirp_scenario(name)
+            out[name] = tuple(res[k] for k in ("t", "s", "e", "i", "r", "p"))
+    T, _ = scenario_schedules(long[0])
+    rates = [scenario_schedules(n)[1] for n in long]
+    e0 = 1.0 / N_POP
+    batch = seirp_rollout(*(np.stack([r[k] for r in rates])
+                            for k in RATE_NAMES), 1.0 - e0, e0, 0.0, 0.0,
+                          0.0, T, 0.1)
+    t = 0.1 * torch.arange(batch[0].shape[-1], dtype=torch.float64,
+                           device=device)
+    for b, name in enumerate(long):
+        out[name] = (t,) + tuple(x[b] for x in batch)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def seirp_phase(device):
+    """The five SEIRP scenarios of testSEIRP01.m at the default dt = 0.1
+    (K up to 40,000 steps; seirp_card_runs), the example's
+    saturated-against-unlimited comparison (K = 4,000), the early-phase
+    observability rank and eigenvalues: float64 on the card against
+    run_seirp_scenario on the CPU at SLICE6_TOL, the eigenvalues against
+    torch.linalg.eigvals of the card's own matrix; the card's walls beside
+    the CPU's."""
+    card, wall = seirp_card_runs(device)
+    parts, cpu_wall = [], 0.0
+    for name in SEIRP_SCENARIOS:
+        cpu, w = _walls(lambda: run_seirp_scenario(name, device="cpu"),
+                        torch.device("cpu"))
+        cpu_wall += w
+        got = dict(zip(("t", "s", "e", "i", "r", "p"), card[name]))
+        check(got["p"].device == device, f"seirp {name}: not on the card")
+        ratio = max(close_ratio(got[k], cpu[k], SLICE6_TOL) for k in got)
+        mass = got["s"] + got["e"] + got["i"] + got["r"] + got["p"]
+        rates = {k: float(v[0]) for k, v in cpu["rates"].items()}
+        lam = seirp_early_eigen(**rates)
+        num = torch.linalg.eigvals(seirp_early_phase_matrix(**rates)).real
+        eig_err = float((torch.sort(lam).values
+                         - torch.sort(num).values).abs().max())
+        parts.append(dict(name=name, K=len(got["t"]), ratio=ratio,
+                          eig_err=eig_err, mass=float((mass - 1).abs().max()),
+                          peak_i=float(got["i"].max()),
+                          deaths=float(got["p"][-1]), lam3=float(lam[2])))
+        check(ratio <= 1.0 and eig_err <= 1e-12 and parts[-1]["mass"] < 1e-6,
+              f"seirp {name}: card vs CPU {ratio:.3e}, eigenvalues "
+              f"{eig_err:.3e}, mass {parts[-1]['mass']:.3e}")
+    log(f"seirp scenarios (float64, dt=0.1; card: A, C one by one, B, D, E "
+        f"batched; against run_seirp_scenario on the CPU at rtol 1e-9): "
+        f"card {wall:.3f}s, CPU one by one {cpu_wall:.3f}s; " + "; ".join(
+            f"{p['name']} K={p['K']} ratio={p['ratio']:.3e} peak_i="
+            f"{p['peak_i']:.4f} deaths={p['deaths']:.5f} eig3="
+            f"{p['lam3']:+.4f} eig_err={p['eig_err']:.1e}" for p in parts))
+    r5 = [np.full(SAT_K, v) for v in (0.9, 0.5, 0.3, 0.0, 0.0)]
+    x0 = (0.99, 0.005, 0.005, 0.0, 0.0, 400.0, 0.1)
+    sat = {"saturated": (0.1, 0.05, 0.02, 0.2, 0.01, 0.05),
+           "unlimited": (0.1, 0.1, 0.02, 0.02, 0.01, 0.05)}
+    out = {}
+    for tag, hs in sat.items():
+        card, wall = _walls(lambda: seirp_saturated_rollout(*r5, *x0, *hs),
+                            device)
+        cpu, cpu_wall = _walls(lambda: seirp_saturated_rollout(
+            *r5, *x0, *hs, device="cpu"), torch.device("cpu"))
+        out[tag] = (float(card[4][-1]), wall, cpu_wall, max(
+            close_ratio(g, c, SLICE6_TOL) for g, c in zip(card, cpu)))
+    A = seirp_early_phase_matrix(**{k: SEIRP_SCENARIOS["A"][k]
+                                    for k in RATE_NAMES})
+    C = np.concatenate([np.zeros((3, 1)), np.eye(3)], axis=1)
+    rank = int(torch.linalg.matrix_rank(obsv(A, C)))
+    rank_p = int(torch.linalg.matrix_rank(obsv(A, np.array([[0., 0, 0, 1]]))))
+    log(f"seirp saturated vs unlimited (K={SAT_K}): deaths "
+        + " vs ".join(f"{t} {v[0]:.4f} (card {v[1]:.3f}s, CPU {v[2]:.3f}s, "
+                      f"ratio={v[3]:.3e})" for t, v in out.items())
+        + f"; observability rank observing (i, r, p) {rank} / 4, observing p "
+        f"only {rank_p} / 4")
+    check(max(v[3] for v in out.values()) <= 1.0
+          and out["saturated"][0] > out["unlimited"][0] and rank == 4
+          and rank_p < 4, "seirp: saturation or observability check failed")
+
+
+def shooting_phase(device):
+    """tests/test_analysis.py's shooting settings: the bang-bang run (P =
+    12, K = 500, dt = 0.1) and 10 random schedules, the multiplicative
+    model (K = 400) and the continuous law (K = 300), without device= on
+    the card and on the CPU, float64: controls equal, the series at
+    SLICE6_TOL; the H certificates on the card's own series, the bang-bang
+    controls, and the optimal cost against the random ones."""
+    P, K = SHOOT_P, SHOOT_K
+    kw = dict(epsilon=0.2, w=np.ones(P), a=0.01 * np.ones(P),
+              u_min=np.zeros(P), u_max=SHOOT_U_MAX, gamma=1 / 7, beta=1 / 7,
+              s0=0.99, i0=0.01, alpha0=0.1,
+              lambda_init=np.array([-1.0, 1.0, 1.0]), K=K, dt=SHOOT_DT)
+    mult = dict(epsilon=0.2, w=np.ones(P), a=0.0001 * np.ones(P), c=0.0004,
+                u_min=np.zeros(P), u_max=SHOOT_U_MAX, beta=1 / 7, s0=0.99,
+                i0=0.01, alpha0=0.1, lambda_init=np.zeros(3), K=MULT_K,
+                dt=SHOOT_DT, alpha_max=10.0)
+    cont = dict(A_coefs=0.002 * np.ones(P), w=np.ones(P), u_min=np.zeros(P),
+                u_max=SHOOT_U_MAX, gamma=0.0, beta=1 / 7, s0=0.99, i0=0.01,
+                rho0=-1.0, lambda20=0.0, K=CONT_K, dt=SHOOT_DT)
+    rng = np.random.default_rng(0)
+    scheds = [None] + [rng.integers(0, 4, (K, P)).astype(float)
+                       for _ in range(SHOOT_RANDOM)]
+
+    def run(**dev):
+        return ([si_alpha_hamiltonian_shooting(**kw, u_schedule=s, **dev)
+                 for s in scheds],
+                si_alpha_multiplicative_shooting(**mult, **dev),
+                si_continuous_control(**cont, **dev))
+
+    card, wall = _walls(run, device)
+    cpu, cpu_wall = _walls(lambda: run(device="cpu"), torch.device("cpu"))
+    pairs = list(zip(card[0], cpu[0])) + [(card[1], cpu[1])]
+    same_u = all(torch.equal(g.u.cpu(), c.u) for g, c in pairs) and \
+        torch.equal(card[2]["u"].cpu(), cpu[2]["u"])
+    ratio = max([close_ratio(getattr(g, f), getattr(c, f), SLICE6_TOL)
+                 for g, c in pairs for f in ("s", "i", "alpha", "lambdas",
+                                             "J0", "J1")]
+                + [close_ratio(card[2][k], cpu[2][k], SLICE6_TOL)
+                   for k in ("s", "i", "alpha", "J0", "J1")])
+    cert = [shooting_certificates(r, 0.2, kw["w"], kw["a"], kw["u_min"],
+                                  SHOOT_U_MAX, kw["beta"], gamma=kw["gamma"],
+                                  optimal=s is None)
+            for r, s in zip(card[0], scheds)]
+    cert.append(shooting_certificates(card[1], 0.2, mult["w"], mult["a"],
+                                      mult["u_min"], SHOOT_U_MAX,
+                                      mult["beta"], c=mult["c"]))
+    bang = all(bool(((r.u == 0) | (r.u == r.u.new_tensor(SHOOT_U_MAX)))
+                    .all()) for r in (card[0][0], card[1]))
+    cost = [float(0.8 * r.J0.mean() + 0.2 * r.J1.mean()) for r in card[0]]
+    log(f"shooting (float64; P={P}, K={K} optimal + {SHOOT_RANDOM} random "
+        f"schedules, multiplicative K={MULT_K}, continuous K={CONT_K}): card "
+        f"{wall:.3f}s, CPU {cpu_wall:.3f}s; controls equal {same_u}, series "
+        f"at rtol 1e-9 {ratio:.3e} of the bound; H certificate "
+        f"{max(c[0] for c in cert):.3e} of 1e-11 term scale, no flip lowers "
+        f"H {all(c[1] for c in cert)}, bang-bang {bang}; cost optimal "
+        f"{cost[0]:.5f} vs best random {min(cost[1:]):.5f}")
+    check(same_u and ratio <= 1.0 and max(c[0] for c in cert) <= 1.0
+          and all(c[1] for c in cert) and bang
+          and cost[0] <= min(cost[1:]) * 1.05
+          and bool((card[2]["u"] == 0).all()),
+          "shooting: card vs CPU or certificate failed")
+
+
+def lstm_series():
+    """examples/lstm_forecast.py's data: the new cases of
+    synthetic_oxford_frame(1, 220, seed=2) and the first 190 days
+    standardized on the card. Returns (cases, xs, mu, sd)."""
+    _, _, truth = synthetic_oxford_frame(1, 220, seed=2)
+    tr = next(iter(truth.values()))
+    cases = tr["s"] * tr["i"] * tr["alpha"] * tr["pop"]
+    xs, mu, sd = standardize(cases[:-LSTM_TEST_DAYS].reshape(-1, 1))
+    return cases, xs, mu, sd
+
+
+def lstm_parity(x_in, y_out, device):
+    """The 100-unit LSTM's first 20 epochs from the same initial weights on
+    the card and on the CPU: (card losses, CPU losses, card wall, CPU
+    wall)."""
+    p0 = LSTMForecaster((100,)).init(torch.Generator().manual_seed(0), x_in,
+                                     device="cpu")
+    kw = dict(num_epochs=20, lr=0.005, lr_drop_period=125, params=p0)
+    (_, l_card), w20 = _walls(lambda: train_forecaster(
+        LSTMForecaster((100,)), x_in, y_out, **kw), device)
+    (_, l_cpu), c20 = _walls(lambda: train_forecaster(
+        LSTMForecaster((100,)), x_in.cpu(), y_out.cpu(), device="cpu", **kw),
+        torch.device("cpu"))
+    return l_card, l_cpu, w20, c20
+
+
+def small_lstm_parity(device, x, y, head):
+    """The (32, 16)-unit forecaster with ``head`` trained SMALL_LSTM_EPOCHS
+    from the same initial weights on the card (``x``, ``y`` lie there) and
+    on the CPU. Returns (card model, CPU model holding the card's trained
+    weights, the losses' reading at rtol LSTM_LOSS_RTOL, the forward's at
+    LSTM_FWD_TOL); each reading <= 1 passes."""
+    p0 = LSTMForecaster(SMALL_LSTM_HIDDEN, output_layer=head).init(
+        torch.Generator().manual_seed(0), x, device="cpu")
+    card, cpu = (LSTMForecaster(SMALL_LSTM_HIDDEN, output_layer=head)
+                 for _ in range(2))
+    p_card, l_card = train_forecaster(card, x, y, params=p0,
+                                      num_epochs=SMALL_LSTM_EPOCHS)
+    _, l_cpu = train_forecaster(cpu, x.cpu(), y.cpu(), params=p0,
+                                num_epochs=SMALL_LSTM_EPOCHS, device="cpu")
+    loss = float(np.max(np.abs(np.subtract(l_card, l_cpu))
+                        / np.asarray(l_cpu))) / LSTM_LOSS_RTOL
+    cpu.load_params({k: v.cpu() for k, v in p_card.items()})
+    with torch.no_grad():
+        fwd = close_ratio(card(x), cpu(x.cpu()), LSTM_FWD_TOL)
+    return card, cpu, loss, fwd
+
+
+def lstm_phase(device):
+    """examples/lstm_forecast.py on the card: the 100-unit LSTM trained 250
+    epochs (lr 0.005, x0.2 from update 125) on the standardized new cases
+    of lstm_series() less 30 days, then the 30-day closed-loop rollout; the
+    loss must fall 10x and the forecast be finite. The first 20 epochs from
+    the same initial weights on the card and on the CPU, held by
+    rms_loss_ratio; then small_lstm_parity with each head on 4 x 60 x 5
+    normal draws (seed 2)."""
+    cases, xs, mu, sd = lstm_series()
+    x_in, y_out = xs[:-1], xs[1:]
+    model = LSTMForecaster(hidden_sizes=(100,))
+    (params, losses), wall = _walls(lambda: train_forecaster(
+        model, x_in, y_out, torch.Generator().manual_seed(0),
+        num_epochs=LSTM_EPOCHS, lr=0.005, lr_drop_period=125), device)
+    pred, r_wall = _walls(lambda: rollout_forecast(model, params, xs,
+                                                   LSTM_TEST_DAYS), device)
+    pred = pred.double() * sd[0, 0] + mu[0, 0]
+    tail = torch.as_tensor(cases[-LSTM_TEST_DAYS:], device=device)
+    mape = float((pred - tail).abs().div(tail.clamp(min=1e-9)).mean() * 100)
+    l_card, l_cpu, w20, c20 = lstm_parity(x_in, y_out, device)
+    ratio = rms_loss_ratio(l_card, l_cpu)
+    rng = np.random.default_rng(2)
+    xs4, ys4 = (torch.as_tensor(rng.standard_normal((4, 60, n)),
+                                device=device) for n in (5, 1))
+    small = {head: small_lstm_parity(device, xs4, ys4, head)[2:]
+             for head in (None, "exp", "scaled_tanh")}
+    log(f"lstm_forecast (hidden 100, {LSTM_EPOCHS} epochs, T={len(x_in)}): "
+        f"card train {wall:.3f}s ({wall / LSTM_EPOCHS * 1e3:.2f} ms/epoch), "
+        f"loss {losses[0]:.4f} -> {losses[-1]:.5f}; {LSTM_TEST_DAYS}-day "
+        f"rollout {r_wall:.3f}s, MAPE {mape:.1f}%; 20 epochs from the same "
+        f"weights card {w20:.3f}s vs CPU {c20:.3f}s, sqrt(loss) at rtol 1e-4 "
+        f"atol 1e-5 {ratio:.3e} of the bound (losses {l_cpu[0]:.4f} -> "
+        f"{l_cpu[-1]:.5f}, largest relative difference "
+        f"{float(np.max(np.abs(np.subtract(l_card, l_cpu)) / l_cpu)):.2e}); "
+        f"hidden {SMALL_LSTM_HIDDEN}, {SMALL_LSTM_EPOCHS} epochs on 4 x 60 x "
+        f"5, losses at rtol {LSTM_LOSS_RTOL:g} / forward at rtol = atol "
+        f"{LSTM_FWD_TOL['rtol']:g}: " + ", ".join(
+            f"{head} {lo:.3e} / {fw:.3e}" for head, (lo, fw) in small.items())
+        + " of the bounds")
+    check(losses[0] >= 10 * losses[-1] and bool(torch.isfinite(pred).all())
+          and ratio <= 1.0 and max(max(v) for v in small.values()) <= 1.0,
+          "lstm_forecast: loss, forecast or parity failed")
+
+
+def deep_features(device, U, alpha):
+    """test04's inputs on the card: 235 regions x 440 days x 37 features
+    (12 NPIs at lags 1, 7, 14 and the long-weekend flag, standardized per
+    region) and the contact rate alpha as targets, standardized (no head)
+    and over its mean (the exp head). Returns (X, {head: targets})."""
+    weekend = long_weekend_feature(date_range_days(CLI_START, T_HIST))
+    X = torch.stack([torch.cat([lagged_features(u, NPI_LAGS),
+                                weekend[:, None]], 1) for u in U])
+    X = standardize(X, axis=1)[0]
+    a = torch.as_tensor(alpha, device=device)[..., None]
+    return X, {None: standardize(a, axis=1)[0], "exp": a / a.mean()}
+
+
+def train_deep(device, X, y, head):
+    """test04's deep stack trained on the card: one cold epoch, then
+    DEEP_EPOCHS timed. Returns (model, params, losses, cold wall, wall,
+    peak device memory in GiB)."""
+    model = LSTMForecaster(DEEP_HIDDEN, output_layer=head)
+    (params, _), c_wall = _walls(lambda: train_forecaster(
+        model, X, y, torch.Generator().manual_seed(1), num_epochs=1), device)
+    torch.cuda.reset_peak_memory_stats()
+    (params, losses), wall = _walls(lambda: train_forecaster(
+        model, X, y, params=params, num_epochs=DEEP_EPOCHS), device)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    return model, params, losses, c_wall, wall, peak
+
+
+def deep_lstm_phase(device, U, alpha):
+    """test04's deep stack (hidden 200, 200, 100, 50, 20) with and without
+    the exp head on deep_features(): one cold epoch, then 10 timed, with
+    the peak device memory; the forward with the trained weights on the
+    card and on the CPU at LSTM_FWD_TOL. Returns the features and targets
+    for the linear phase."""
+    X, targets = deep_features(device, U, alpha)
+    lines = []
+    for head, y in targets.items():
+        model, params, losses, c_wall, wall, peak = train_deep(device, X, y,
+                                                               head)
+        with torch.no_grad():
+            out, f_wall = _walls(lambda: model(X), device)
+        cpu_model = LSTMForecaster(DEEP_HIDDEN, output_layer=head)
+        cpu_model.load_params(params, device="cpu")
+        with torch.no_grad():
+            ref, cpu_wall = _walls(lambda: cpu_model(X.cpu()),
+                                   torch.device("cpu"))
+        ratio = close_ratio(out, ref, LSTM_FWD_TOL)
+        lines.append(
+            f"head {head}: cold epoch {c_wall:.3f}s, {DEEP_EPOCHS} epochs "
+            f"{wall:.3f}s ({wall / DEEP_EPOCHS * 1e3:.1f} ms/epoch), loss "
+            f"{losses[0]:.4f} -> {losses[-1]:.4f}, peak {peak:.2f} GiB; "
+            f"forward card {f_wall * 1e3:.1f} ms vs CPU {cpu_wall:.3f}s, "
+            f"{ratio:.3e} of the bound")
+        check(ratio <= 1.0 and all(np.isfinite(losses))
+              and bool(torch.isfinite(out).all()),
+              f"deep lstm ({head}): card vs CPU or finiteness failed")
+    log(f"deep lstm (hidden {DEEP_HIDDEN}, {R_REGIONS} x {T_HIST} x "
+        f"{X.shape[-1]}, float32, forward at rtol = atol "
+        f"{LSTM_FWD_TOL['rtol']:g}): "
+        + "; ".join(lines))
+    return X, targets[None][..., 0]
+
+
+def linear_svr_phase(device, U, alpha, X, y):
+    """The three SVR modes at the reference's size (n = 400 days, d = 12
+    NPIs, test03ExpfitVsIPRegression.m:198-246; region 0's levels against
+    its alpha), 2,000 steps each, card and CPU from the same draws (held by
+    the objective within 1e-9 relative and the predictions within 1e-6 of
+    the target's scale: the hinge's kinks may part the iterates); ridge
+    (lambda 1e-2) on each region's 37 standardized features normwise, each
+    weight within max(1e-9, n cond eps) max|w| (the n = 440 rows summed
+    into X'X in another order move it by up to n eps, and the solve of the
+    regularized normal matrix multiplies that by its cond; normwise, as a
+    solve fixes the weights relative to their norm, not each small weight
+    to its own size); ARX (AR(14) on each region's first 352 days
+    of alpha, 88 ahead): forecasts at ARX_FORECAST_TOL, fits by their
+    residual costs within ARX_COST_RTOL."""
+    Xr, yr = U[0][:SVR_N], alpha[0][:SVR_N]
+    parts = []
+    for kernel in ("linear", "rbf", "rbf-exact"):
+        fit = lambda **d: svr_fit(Xr, yr, kernel, n_steps=SVR_STEPS,
+                                  generator=torch.Generator().manual_seed(2),
+                                  **d)
+        card, wall = _walls(fit, device)
+        cpu, cpu_wall = _walls(lambda: fit(device="cpu"), torch.device("cpu"))
+        on_cpu = card._replace(**{f: getattr(card, f).cpu() for f in (
+            "w", "b", "mu", "sd", "omega", "phase", "X_train")
+            if getattr(card, f) is not None})
+        f_card = float(svr_objective(on_cpu, Xr, yr))
+        f_cpu = float(svr_objective(cpu, Xr, yr))
+        obj = abs(f_card - f_cpu) / (1e-9 * f_cpu)
+        pred = float((svr_predict(card, Xr).cpu() - svr_predict(cpu, Xr))
+                     .abs().max()) / (1e-6 * np.abs(yr).max())
+        parts.append(f"{kernel} card {wall:.3f}s CPU {cpu_wall:.3f}s "
+                     f"objective {f_card:.6e} ({obj:.3e} of the bound), "
+                     f"predictions {pred:.3e} of the bound")
+        check(obj <= 1.0 and pred <= 1.0, f"svr {kernel}: card vs CPU")
+    def ridge(dev):
+        Xd, yd = X.to(dev), y.to(dev)
+        return [ridge_regression(Xd[r], yd[r], lam=1e-2)
+                for r in range(R_REGIONS)]
+
+    card_r, r_wall = _walls(lambda: ridge(device), device)
+    cpu_r, r_cpu = _walls(lambda: ridge(torch.device("cpu")),
+                          torch.device("cpu"))
+    F = X.shape[-1]
+    Xc = X.cpu() - X.cpu().mean(dim=1, keepdim=True)
+    r_cond = torch.linalg.cond(Xc.transpose(1, 2) @ Xc
+                               + 1e-2 * torch.eye(F, dtype=X.dtype))
+    r_ratio = 0.0
+    for (w, b), (w_c, b_c), k in zip(card_r, cpu_r, r_cond):
+        rho = max(1e-9, X.shape[1] * float(k) * 2.0 ** -52)
+        scale = float(w_c.abs().max())
+        r_ratio = max(r_ratio, close_ratio(w, w_c, dict(rtol=0.0,
+                                                        atol=rho * scale)),
+                      close_ratio(b, b_c, dict(rtol=rho, atol=rho * scale)))
+    n_fit = T_HIST * 4 // 5
+    arx = lambda **d: [arx_fit_predict(alpha[r][:n_fit], ARX_ORDER,
+                                       T_HIST - n_fit, **d)
+                       for r in range(R_REGIONS)]
+    card_a, a_wall = _walls(arx, device)
+    cpu_a, a_cpu = _walls(lambda: arx(device="cpu"), torch.device("cpu"))
+    fc_ratio = max(close_ratio(g[1], c[1], ARX_FORECAST_TOL)
+                   for g, c in zip(card_a, cpu_a))
+    cost_ratio = 0.0
+    for r, (g, c) in enumerate(zip(card_a, cpu_a)):
+        Xa, t = ar_design(alpha[r][:n_fit], ARX_ORDER, device="cpu")
+        cost = [float(torch.mean((t + Xa @ v.cpu()) ** 2)) for v in (g[0],
+                                                                     c[0])]
+        cost_ratio = max(cost_ratio, abs(cost[0] - cost[1])
+                         / (ARX_COST_RTOL * cost[1]))
+    log(f"svr (n={SVR_N}, d={Xr.shape[1]}, {SVR_STEPS} steps, float64): "
+        + "; ".join(parts) + f"; ridge x{R_REGIONS} card {r_wall:.3f}s CPU "
+        f"{r_cpu:.3f}s {r_ratio:.3e} of max(1e-9, n cond eps) max|w| (cond "
+        f"max {float(r_cond.max()):.3e}); arx AR({ARX_ORDER}) x{R_REGIONS} "
+        f"card {a_wall:.3f}s CPU {a_cpu:.3f}s, forecasts {fc_ratio:.3e} of "
+        f"rtol 1e-8, residual costs {cost_ratio:.3e} of 1e-11")
+    check(r_ratio <= 1.0 and fc_ratio <= 1.0 and cost_ratio <= 1.0,
+          "ridge / arx: card vs CPU")
+
+
+def slice6_phase(device):
+    """Slice 6: the theory studies (SEIRP scenarios, linear systems,
+    Hamiltonian shooting) and the ML stack (the univariate and the deep
+    LSTM, SVR, ridge, ARX) through the user's entry points on the card,
+    each held against the CPU; none of them launches a kernel."""
+    reset_launches()
+    t0 = time.perf_counter()
+    seirp_phase(device)
+    shooting_phase(device)
+    lstm_phase(device)
+    truth = synthetic_regions(R_REGIONS, T_HIST, seed=0)
+    U = [tr["u"] for tr in truth.values()]
+    alpha = np.stack([tr["alpha"] for tr in truth.values()])
+    X, y = deep_lstm_phase(device, U, alpha)
+    linear_svr_phase(device, U, alpha, X, y)
+    n = read_launches()
+    log(f"slice 6: {time.perf_counter() - t0:.1f}s, kernel launches {n} "
+        f"(none expected); {card_line()}")
+    check(not any(n.values()), f"slice 6 launched kernels: {n}")
+
+
 def kernel_entries(measured, xprize_launches, stencil_cases, sim_launches,
                    pairwise_cases, cli_launches, backtest, slice5_launches):
     """One entry per kernel for the JSON line: its launches on its path's
@@ -2384,6 +2907,9 @@ def main():
     # the standalone trainer and prescriptor, AR-alpha, Rt, smoothing,
     # filter health and the realistic-artefact data (slice 5)
     slice5_launches = slice5_phase(device, main_res, bt, bf, *cli_files)
+
+    # the theory studies and the ML stack (slice 6)
+    slice6_phase(device)
 
     kernels = kernel_entries(measured, xprize_launches, stencil_cases,
                              sim_launches, pairwise_cases, cli_launches,

@@ -4,7 +4,7 @@ The JAX package beside it is the reference: the tests run both on the same
 inputs and hold each module of the port against its counterpart. Module
 names mirror the JAX package's, so each counterpart is easy to find.
 
-Five slices are ported. The XPRIZE product runs from its own entry
+Six slices are ported. The XPRIZE product runs from its own entry
 points: the CLI (python -m epidemicmodeling_torch.pipelines.xprize_cli) and
 pipelines.train_predict_prescribe read the OxCGRT CSVs without pandas and
 run pipelines.run_pipeline, on the batch-last backends with the two EKF/EKS
@@ -21,7 +21,10 @@ pre-generic 6-state EKS, the four Rt estimators, the smoothing filters,
 the filter-health report, the realistic-artefact and OxCGRT_latest frames
 and the JHU reader. The spatial stack (spatial.diffusion_rollout,
 spatial.walkers.walking_sources_sim, spatial.population_motion_sim) runs
-with the diffusion-stencil and pairwise-force kernels. All four kernels are written by hand in CUDA C++ for
+with the diffusion-stencil and pairwise-force kernels. The theory studies
+(the SIR and SEIRP models, analysis/) and the ML stack (ml/: features,
+ridge and ARX, epsilon-SVR, the LSTM forecasters) run as tensor ops and
+cuDNN, with no kernel of their own. All four kernels are written by hand in CUDA C++ for
 Hopper (csrc/, ops/cuda/). The entry points run on the CUDA card unless the
 caller passes CPU tensors or device="cpu"; for CPU tensors each kernel
 wrapper runs its plain PyTorch version.
@@ -35,7 +38,11 @@ spatial      diffusion CA, random-walk sources, agent sim with social forces
 ops          the generic and the batch-last EKF/EKS cores, the CUDA kernels,
              AR fits and forecasts, smoothing filters, filter health
 models       SI-alpha, costate and time-reversed systems (generic and
-             batch-last), the SI and SI-alpha rollouts
+             batch-last), the SI, SI-alpha, SIR and SEIRP rollouts
+analysis     linear systems, the SEIRP scenarios, country statistics,
+             forward Hamiltonian shooting
+ml           features, ridge and ARX, epsilon-SVR, the custom layers, the
+             LSTM forecasters and optax's update
 regression   batched NNLS with intercept refinement, LASSO, element-wise
              robust fits
 rt           the four Rt estimators (generation ratios, log-linear and

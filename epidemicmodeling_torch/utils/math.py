@@ -60,6 +60,20 @@ def float_tensor(x, device=None) -> torch.Tensor:
     return t if t.is_floating_point() else t.to(torch.float64)
 
 
+def float_args(device, *values) -> list:
+    """``values`` as tensors on one device (``device``, else where the
+    first tensor among them lies, else the CUDA card) in one floating
+    dtype: float64 unless every tensor given is float32, as JAX's
+    ``result_type(float)`` under x64 for Python numbers."""
+    like = next((v for v in values if isinstance(v, torch.Tensor)), None)
+    dev = resolve_device(device, like)
+    ts = [float_tensor(v, dev) for v in values]
+    fd = ts[0].dtype
+    for t in ts[1:]:
+        fd = torch.promote_types(fd, t.dtype)
+    return [t.to(fd) for t in ts]
+
+
 def host_array(v) -> np.ndarray:
     """A tensor (on any device) or array-like as a host NumPy array."""
     return np.asarray(v.detach().cpu().numpy() if isinstance(v, torch.Tensor)

@@ -53,9 +53,11 @@ from epidemicmodeling_torch.spatial.agents import default_environment
 from epidemicmodeling_torch.spatial.walkers import walking_sources_sim
 
 from chip_smoke import (EKF3_BOUNDS, FILTER_TYPES, LM_COST_RTOL, LM_RTOL,
-                        PAIRWISE_ROW_BOUND, SMALL_REF_BOUNDS, law_rows,
-                        lm_costs, per_capita_case, pinv_ranks_agree,
-                        row_err, rt_series, sweep_errs)
+                        PAIRWISE_ROW_BOUND,
+                        SMALL_REF_BOUNDS, law_rows, lm_costs,
+                        per_capita_case, pinv_ranks_agree, row_err,
+                        rt_series, shooting_certificates, small_lstm_parity,
+                        sweep_errs)
 from tests._torch_helpers import (make_inputs, masked_err, packed_args,
                                   scaled_err)
 
@@ -891,3 +893,174 @@ def test_rt_and_smoothing_on_the_card_match_the_cpu(cuda):
             np.testing.assert_allclose(lm_costs(x2, got[1], got[2], 14),
                                        lm_costs(x2, ref[1], ref[2], 14),
                                        rtol=LM_COST_RTOL, atol=0)
+
+
+def test_seirp_and_linear_systems_on_the_card_match_the_cpu(cuda):
+    """SIR, SEIRP (time-varying rates, a leading batch), the saturated
+    model, a scenario at dt = 0.5 and the linear-systems analytics from
+    NumPy inputs (so on the card) against device="cpu", float64, at rtol
+    1e-9 (chip_smoke's SLICE6_TOL); the country statistics likewise."""
+    from epidemicmodeling_torch.analysis import (
+        active_cases, ctrb, lagged_case_rate, mortality_rate, obsv,
+        r0_generation_ratio, run_seirp_scenario, seirp_early_closed_form,
+        seirp_early_eigen, seirp_early_phase_matrix)
+    from epidemicmodeling_torch.models import (seirp_rollout,
+                                               seirp_saturated_rollout,
+                                               sir_rollout)
+    rng = np.random.default_rng(0)
+    K = 600
+    rates = (np.array([0.65, 0.005, 0.05, 0.08, 0.1, 0.02, 0.001])[:, None]
+             * (1 + 0.3 * np.sin(0.01 * np.arange(K) + rng.uniform(
+                 0, 6, (7, 1)))))
+    ae = np.stack([rates[0], 0.8 * rates[0]])
+    x0 = (1 - 1e-4, 1e-4, 0.0, 0.0, 0.0)
+    sat = (0.1, 0.05, 0.02, 0.2, 0.01, 0.05)
+    rates_a = dict(alpha_e=0.65, alpha_i=0.005, kappa=0.05, rho=0.08,
+                   beta=0.1, mu=0.02, gamma=0.0)
+    total = np.cumsum(rng.uniform(0, 80, (3, 50)), axis=1)
+    infected = rng.uniform(50, 300, (3, 50))
+    M = rng.standard_normal((4, 4))
+    runs = [
+        lambda **d: sir_rollout(0.99, 0.01, 0.0, 0.4, 0.1, 0.01, 60.0, 0.1,
+                                **d),
+        lambda **d: seirp_rollout(ae, *rates[1:], *x0, 300.0, 0.5, **d),
+        lambda **d: seirp_saturated_rollout(*rates[[0, 1, 2, 3, 6]], *x0,
+                                            300.0, 0.5, *sat, **d),
+        lambda **d: tuple(run_seirp_scenario("C", 0.5, **d)[k]
+                          for k in ("t", "s", "e", "i", "r", "p")),
+        lambda **d: (seirp_early_phase_matrix(**rates_a, **d),
+                     seirp_early_eigen(**rates_a, **d),
+                     *seirp_early_closed_form(np.linspace(0, 25, 51), 1e-8,
+                                              **rates_a, **d),
+                     obsv(M, np.eye(4)[:1], **d),
+                     ctrb(np.eye(4), np.ones((1, 4)), **d)),
+        lambda **d: (mortality_rate(0.02 * total, total, **d),
+                     active_cases(total, 0.02 * total, 0.3 * total, **d),
+                     r0_generation_ratio(infected[0], 3, **d),
+                     lagged_case_rate(total, infected, 2, True, **d)),
+    ]
+    for run in runs:
+        for g, r in zip(run(), run(device="cpu")):
+            assert g.device.type == "cuda"
+            torch.testing.assert_close(g.cpu(), r, rtol=1e-9, atol=1e-12)
+
+
+def test_shooting_on_the_card_matches_the_cpu(cuda):
+    """The three shooting variants at tests/test_analysis.py's settings on
+    the card (their default) and on the CPU, float64: controls equal, the
+    series at rtol 1e-9; the structural H certificate and the flip check
+    on the card's own series (chip_smoke.shooting_certificates)."""
+    from epidemicmodeling_torch.analysis import (
+        si_alpha_hamiltonian_shooting, si_alpha_multiplicative_shooting,
+        si_continuous_control)
+    P = 12
+    u_max = np.array([3, 3, 2, 4, 2, 3, 2, 4, 2, 3, 2, 4], float)
+    kw = dict(epsilon=0.2, w=np.ones(P), a=0.01 * np.ones(P),
+              u_min=np.zeros(P), u_max=u_max, gamma=1 / 7, beta=1 / 7,
+              s0=0.99, i0=0.01, alpha0=0.1,
+              lambda_init=np.array([-1.0, 1.0, 1.0]), K=500, dt=0.1)
+    sched = np.random.default_rng(1).integers(0, 4, (500, P)).astype(float)
+    mult = dict(epsilon=0.2, w=np.ones(P), a=0.0001 * np.ones(P), c=0.0004,
+                u_min=np.zeros(P), u_max=u_max, beta=1 / 7, s0=0.99,
+                i0=0.01, alpha0=0.1, lambda_init=np.zeros(3), K=400, dt=0.1,
+                alpha_max=10.0)
+    additive = dict(a=kw["a"], gamma=kw["gamma"])
+    for run, opt, cert in (
+            (lambda **d: si_alpha_hamiltonian_shooting(**kw, **d), True,
+             additive),
+            (lambda **d: si_alpha_hamiltonian_shooting(
+                **kw, u_schedule=sched, **d), False, additive),
+            (lambda **d: si_alpha_multiplicative_shooting(**mult, **d),
+             True, dict(a=mult["a"], c=mult["c"]))):
+        got, ref = run(), run(device="cpu")
+        assert torch.equal(got.u.cpu(), ref.u)
+        for f in ("s", "i", "alpha", "lambdas", "J0", "J1"):
+            torch.testing.assert_close(getattr(got, f).cpu(),
+                                       getattr(ref, f), rtol=1e-9,
+                                       atol=1e-12)
+        h, flips = shooting_certificates(got, 0.2, np.ones(P), u_min=np.zeros(
+            P), u_max=u_max, beta=1 / 7, optimal=opt, **cert)
+        assert h <= 1.0 and flips
+    cont = dict(A_coefs=0.002 * np.ones(P), w=np.ones(P), u_min=np.zeros(P),
+                u_max=u_max, gamma=3e-5, beta=1 / 7, s0=0.99, i0=0.01,
+                rho0=-1.0, lambda20=0.0, K=300, dt=0.1)
+    got = si_continuous_control(**cont)
+    ref = si_continuous_control(**cont, device="cpu")
+    assert torch.equal(got["u"].cpu(), ref["u"])
+    for k in ("s", "i", "alpha", "J0", "J1"):
+        torch.testing.assert_close(got[k].cpu(), ref[k], rtol=1e-9,
+                                   atol=1e-12)
+
+
+def test_lstm_on_the_card_matches_the_cpu(cuda):
+    """The LSTM forecaster (hidden (32, 16), each head) from the same
+    initial weights, by chip_smoke.small_lstm_parity: 10 training epochs
+    at LSTM_LOSS_RTOL and the float32 forward at LSTM_FWD_TOL, bounds
+    that cuDNN's TF32 fails; the rollouts at rtol 1e-4; the weights and
+    outputs on the card when the inputs are."""
+    from epidemicmodeling_torch.ml import (LSTMForecaster, rollout_forecast,
+                                           rollout_forecast_exog)
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((4, 60, 5))
+    y = rng.standard_normal((4, 60, 1))
+    for head in (None, "exp", "scaled_tanh"):
+        card, cpu, loss, fwd = small_lstm_parity(
+            cuda, torch.as_tensor(x, device=cuda),
+            torch.as_tensor(y, device=cuda), head)
+        assert all(v.device.type == "cuda" for v in card.params().values())
+        assert loss <= 1.0 and fwd <= 1.0
+        got = rollout_forecast_exog(card, None, x[0, :40], x[0, 40:], 1)
+        want = rollout_forecast_exog(cpu, None, x[0, :40], x[0, 40:], 1)
+        assert got.device.type == "cuda"
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)
+    series = np.sin(0.3 * np.arange(50.0))[:, None]
+    model = LSTMForecaster((8,))
+    p = model.init(None, torch.as_tensor(series, device=cuda))
+    got = rollout_forecast(model, p, series, 7)
+    p_cpu = {k: v.cpu() for k, v in p.items()}
+    ref = rollout_forecast(LSTMForecaster((8,)), p_cpu, series, 7,
+                           device="cpu")
+    torch.testing.assert_close(got.cpu(), ref, rtol=1e-4, atol=1e-5)
+    # NumPy history, weights on the CPU, a model not built yet: the card
+    fresh = rollout_forecast(LSTMForecaster((8,)), p_cpu, series, 7)
+    assert fresh.device.type == "cuda"
+    torch.testing.assert_close(fresh.cpu(), ref, rtol=1e-4, atol=1e-5)
+
+
+def test_features_ridge_arx_and_svr_on_the_card_match_the_cpu(cuda):
+    """lagged_features, long_weekend_feature and standardize exactly /
+    at rtol 1e-12; ridge and ARX (from the same draws) at rtol 1e-9; the
+    three SVR modes after 100 Adam steps from the same draws at rtol 1e-9
+    (float64)."""
+    from epidemicmodeling_torch.ml import (arx_fit_predict, lagged_features,
+                                           long_weekend_feature,
+                                           ridge_regression, standardize,
+                                           svr_fit, svr_predict)
+    rng = np.random.default_rng(3)
+    U = rng.integers(0, 4, (80, 12)).astype(float)
+    dates = [f"2020-03-{d:02d}" for d in range(1, 32)]
+    assert torch.equal(lagged_features(U, (0, 1, 7)).cpu(),
+                       lagged_features(U, (0, 1, 7), device="cpu"))
+    assert torch.equal(long_weekend_feature(dates).cpu(),
+                       long_weekend_feature(dates, device="cpu"))
+    X = rng.standard_normal((80, 6)) * 3 + 1
+    y = X @ rng.standard_normal(6) + 0.1 * rng.standard_normal(80)
+    for g, r in zip(standardize(X), standardize(X, device="cpu")):
+        torch.testing.assert_close(g.cpu(), r, rtol=1e-12, atol=1e-13)
+    for g, r in zip(ridge_regression(X, y, 1e-2),
+                    ridge_regression(X, y, 1e-2, device="cpu")):
+        torch.testing.assert_close(g.cpu(), r, rtol=1e-9, atol=1e-12)
+    z = rng.standard_normal(20)
+    series = np.cos(0.1 * np.arange(200)) + 0.05 * rng.standard_normal(200)
+    for g, r in zip(arx_fit_predict(series, 6, 20, noise=z),
+                    arx_fit_predict(series, 6, 20, noise=z, device="cpu")):
+        torch.testing.assert_close(g.cpu(), r, rtol=1e-9, atol=1e-12)
+    for kernel in ("linear", "rbf", "rbf-exact"):
+        fit = lambda **d: svr_fit(X, y, kernel, n_steps=100, n_rff=32,
+                                  generator=torch.Generator().manual_seed(4),
+                                  **d)
+        got, ref = fit(), fit(device="cpu")
+        assert got.w.device.type == "cuda"
+        torch.testing.assert_close(svr_predict(got, X).cpu(),
+                                   svr_predict(ref, X), rtol=1e-9,
+                                   atol=1e-12)

@@ -25,7 +25,8 @@ from epidemicmodeling_torch.pipelines import PipelineConfig
 
 PORT_ROOT = os.path.join(os.path.dirname(os.path.dirname(__file__)),
                          "epidemicmodeling_torch")
-FORBIDDEN = {"jax", "jaxlib", "flax", "pandas", "epidemicmodeling_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "pandas",
+             "epidemicmodeling_tpu"}
 
 
 @pytest.mark.parametrize("seed", [0, 7])
@@ -122,7 +123,8 @@ def test_port_imports_no_jax_or_pandas():
                    "regression/lasso.py", "regression/robust.py",
                    "pipelines/prescribe.py", "pipelines/train.py",
                    "ops/ar.py", "data/jhu.py", "ops/smoothing.py",
-                   "ops/diagnostics.py"):
+                   "ops/diagnostics.py", "analysis/shooting.py",
+                   "ml/lstm.py", "ml/svr.py", "models/seirp.py"):
         assert os.path.join(PORT_ROOT, module) in files, module
     bad = [(os.path.relpath(f, os.path.dirname(PORT_ROOT)), mod)
            for f in files for mod in _imports(f)
