@@ -111,7 +111,22 @@ CUDA toolkit (nvcc). In order, it:
    200, 200, 100, 50, 20, with and without the exp head) on 235 regions x
    440 days x 37 features, 10 timed epochs, its peak memory and its
    forward against the CPU's; the three SVR modes at n = 400, d = 12
-   (2,000 steps), ridge and ARX on each of the 235 regions.
+   (2,000 steps), ridge and ARX on each of the 235 regions;
+15. drives the device mesh (slice 7) with MESH_SLOTS = 5 slots on the one
+   card (a mesh shows here the split, the per-slot kernel geometry, the
+   gather, the rendezvous and bit parity, never scaling): the XPRIZE cell
+   as dp x ep = 5 x 1 and 1 x 5, cold then warm, bit for bit against the
+   single slot (J0, J1, u_prescribed, a2, the front, s_hist) with
+   MESH_SLOTS times the single slot's ekf3 and ekf6 launches; the CLI with
+   --mesh 5x1 --device cuda --cpu-devices 5 on the CLI phase's CSVs, its
+   prescriptions file byte for byte the single-device CLI's; the backtest
+   with dp = 5, bit for bit; the "vmap" backend at 16 regions on two slots
+   (bit for bit, else graded by ROADMAP's pinv rule with what differed
+   printed); run_multihost_dryrun with 2 processes x 2 slots, both on
+   cuda:0 through Gloo, for "lanes" and "pallas" (J0 and a2 within 1e-9 of
+   one process); parallel_kalman at T = 4096, m = 3 on the card against
+   the CPU in float64 (PKF_TOL). Each wall is printed beside the single
+   slot's with the card's name and power limit.
 
 Every failed check raises, so the exit code is non-zero. Only when all
 phases pass does it print the kernel JSON line, the card's name and power
@@ -120,13 +135,16 @@ gives ekf6's time on the per-capita input with active control,
 pairwise's at N = 100,000, ekf3's at the backtest's (T = 440, B = 14,100)
 and each EKS kernel's launches on the CLI's and the backtest's warm runs,
 ekf3's on train_npi_prescriptor's and ekf6's on prescribe_from_checkpoint's,
-all measured in the same run.
+and every kernel's launches on the 5 x 1 mesh run (mesh_launches), all
+measured in the same run; roofline's entry is its copy kernel, launched by
+phase 9 alone (no path of the system runs it).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import importlib.util
 import json
 import shutil
 import subprocess
@@ -137,6 +155,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from epidemicmodeling_torch import viz
 from epidemicmodeling_torch.analysis import (
     SEIRP_SCENARIOS, obsv, run_seirp_scenario, seirp_early_eigen,
     seirp_early_phase_matrix, si_alpha_hamiltonian_shooting,
@@ -175,7 +194,10 @@ from epidemicmodeling_torch.ops.diagnostics import (filter_health,
                                                     summarize_health)
 from epidemicmodeling_torch.ops.ar import ar_design, ar_normal_matrix
 from epidemicmodeling_torch.ops.ekf import _matlab_pinv
+from epidemicmodeling_torch.ops.parallel_kf import parallel_kalman
 from epidemicmodeling_torch.ops.smoothing import smooth_series
+from epidemicmodeling_torch.parallel import Mesh, make_mesh
+from epidemicmodeling_torch.parallel.multihost import run_multihost_dryrun
 from epidemicmodeling_torch.pipelines import (PipelineConfig,
                                               build_batches_from_frames,
                                               forecast_quality_assessment,
@@ -209,6 +231,10 @@ from tests._torch_helpers import (make_inputs, masked_err, packed_args,
                                   scaled_err)
 
 R_REGIONS, T_HIST, HORIZON = 235, 440, 92
+# slots of the one card in the mesh phase; parallel_kalman's card-vs-CPU
+# bound (float64, relative to each output's largest magnitude)
+MESH_SLOTS = 5
+PKF_TOL = 1e-9
 N_EPS, CHUNK, N_MC = 250, 25, 500
 MINS = np.zeros(12)
 WEIGHTS = np.ones(12)
@@ -250,9 +276,15 @@ KERNELS = {
         plain=pairwise_kernel.social_forces_plain,
         source="epidemicmodeling_torch/csrc/pairwise.cu",
         replaces="epidemicmodeling_tpu/ops/pallas/pairwise.py:79"),
+    "roofline": dict(
+        run=roofline_kernel.copy_plus_one,
+        plain=roofline_kernel.copy_plus_one_plain,
+        source="epidemicmodeling_torch/csrc/roofline.cu",
+        replaces="bench.py:119"),
 }
 LAUNCH_COUNTERS = {"ekf3": ekf3_kernel, "ekf6": ekf6_kernel,
-                   "stencil": stencil_kernel, "pairwise": pairwise_kernel}
+                   "stencil": stencil_kernel, "pairwise": pairwise_kernel,
+                   "roofline": roofline_kernel}
 
 # The card's published peaks (H100 SXM, 700 W):
 # device memory and float32 outside the tensor cores.
@@ -1228,12 +1260,19 @@ def roofline_phase(device):
     """The card's roofline anchors: a copy (x + 1) of 1 GB and a 512-deep
     fused multiply-add chain over 128 MB, each held against its plain
     version and timed; prints the copy rate beside PEAK_BYTES_PER_S and the
-    FMA rate beside PEAK_F32_PER_S. Returns the two rates."""
+    FMA rate beside PEAK_F32_PER_S. Returns the kernels-line entry of the
+    copy (the phase's launches, its error, kernel, plain-version and bound
+    times; x + 1 is one PyTorch call, so the library time is the plain
+    version's)."""
+    reset_launches()
     gen = torch.Generator(device).manual_seed(9)
     x = torch.rand(1 << 28, generator=gen, device=device)
-    check(torch.equal(roofline_kernel.copy_plus_one(x),
-                      roofline_kernel.copy_plus_one_plain(x)),
-          "roofline copy: differs from x + 1")
+    got = roofline_kernel.copy_plus_one(x)
+    copy_err = float((got - roofline_kernel.copy_plus_one_plain(x)).abs()
+                     .max())
+    check(copy_err == 0.0, "roofline copy: differs from x + 1")
+    del got
+    copy_bound = bound(2 * 4 * x.numel(), x.numel())
     copy_ms = cuda_ms(lambda: roofline_kernel.copy_plus_one(x), reps=10)
     plain_ms = cuda_ms(lambda: roofline_kernel.copy_plus_one_plain(x),
                        reps=10)
@@ -1257,7 +1296,13 @@ def roofline_phase(device):
         f"{flops / 1e12:.3f} TFLOP/s float32 against {PEAK_F32_PER_S / 1e12:.0f}"
         f" ({flops / PEAK_F32_PER_S:.3f}); max rel err vs float64 plain "
         f"{rel:.3e}")
-    return rate, flops
+    b_ms, b_by = copy_bound
+    return dict(launches=read_launches()["roofline"], max_abs_err=copy_err,
+                ms=copy_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=plain_ms, fma_ms=fma_ms, fma_max_rel_err=rel,
+                path="chip_smoke.roofline_phase (measures the card; no "
+                     "path of the system runs it)",
+                shape="copy 1 GB float32; FMA chain 512-deep over 128 MB")
 
 
 def write_cli_csvs():
@@ -2782,12 +2827,294 @@ def slice6_phase(device):
     check(not any(n.values()), f"slice 6 launched kernels: {n}")
 
 
+def bit_equal(a, b) -> bool:
+    """Equal bit for bit, NaN where NaN."""
+    if a.is_floating_point():
+        nan = torch.isnan(a)
+        return torch.equal(nan, torch.isnan(b)) and torch.equal(a[~nan],
+                                                                b[~nan])
+    return torch.equal(a, b)
+
+
+def same_bits(got: dict, ref: dict, tag: str) -> None:
+    """Fails naming the fields of ``got`` that are not ``ref``'s bit for
+    bit."""
+    diff = [n for n in ref if not bit_equal(got[n], ref[n])]
+    check(not diff, f"{tag}: differs from the single-slot run in {diff}")
+
+
+def xprize_fields(res) -> dict:
+    return {"J0": res.pareto["J0"], "J1": res.pareto["J1"],
+            "u_prescribed": res.pareto["u_prescribed"],
+            "a2": res.trained.a2, "front": res.pareto_front,
+            "s_hist": res.s_hist}
+
+
+def mesh_xprize_runs(device, bt, bf, actual, card):
+    """The XPRIZE cell (pallas, float32) on one slot and on MESH_SLOTS
+    slots of the one card, as dp x ep = 5 x 1 and 1 x 5, each cold then
+    warm; the mesh runs' outputs equal the single slot's bit for bit and
+    launch each EKS kernel MESH_SLOTS times a call. Returns the 5 x 1 warm
+    run's launches."""
+    cfg = PipelineConfig(backend="pallas", smoother_gain="solve",
+                         pareto_chunk=CHUNK, num_monte_carlo=N_MC)
+    eps = epsilon_grid(N_EPS).numpy()
+
+    def run(mesh):
+        reset_launches()
+        t0 = time.perf_counter()
+        res = run_pipeline(bt, bf, actual, T_HIST, WEIGHTS, eps, MINS,
+                           NPI_MAXES_DEFAULT, T_HIST, cfg,
+                           generator=torch.Generator().manual_seed(0),
+                           dtype=F32, device=None if mesh else device,
+                           mesh=mesh)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0, read_launches()
+
+    slots = [device] * MESH_SLOTS
+    grid = np.empty(MESH_SLOTS, dtype=object)
+    grid[:] = slots
+    meshes = {"1 slot": None, "5x1": make_mesh(devices=slots),
+              "1x5": Mesh(grid.reshape(1, MESH_SLOTS))}
+    check(meshes["5x1"].shape == {"dp": MESH_SLOTS, "ep": 1},
+          f"make_mesh of {MESH_SLOTS} slots: {meshes['5x1'].shape}")
+    out = {}
+    for name, mesh in meshes.items():
+        run(mesh)
+        out[name] = run(mesh)
+    ref, ref_wall, ref_n = out["1 slot"]
+    for name in ("5x1", "1x5"):
+        res, wall, n = out[name]
+        same_bits(xprize_fields(res), xprize_fields(ref),
+                  f"mesh {name} XPRIZE")
+        check(n["ekf3"] == MESH_SLOTS * ref_n["ekf3"]
+              and n["ekf6"] == MESH_SLOTS * ref_n["ekf6"],
+              f"mesh {name}: launches {n}, one slot {ref_n}")
+        stages = " ".join(f"{k}={v:.3f}s" for k, v in
+                          res.stage_seconds.items())
+        log(f"mesh {name} XPRIZE (pallas, float32, {MESH_SLOTS} slots on "
+            f"one card, warm): wall={wall:.3f}s against {ref_wall:.3f}s on "
+            f"one slot; {stages}; launches={n} ({n['ekf3'] // MESH_SLOTS} "
+            f"ekf3 / {n['ekf6'] // MESH_SLOTS} ekf6 a slot); bit-identical "
+            f"J0, J1, u_prescribed, a2, front, s_hist [{card}]")
+    return out["5x1"][2]
+
+
+def mesh_cli_run(files, days, card):
+    """The CLI on the CLI cell's CSVs with --mesh 5x1 (5 slots on the one
+    card): its prescriptions file equals the single-device warm run's
+    (cli_phase's presc_warm.csv) byte for byte."""
+    out = CLI_DIR / "presc_mesh.csv"
+    argv = ["--data", files["data"], "--geos", files["geos"],
+            "--populations", files["populations"],
+            "--start-train", CLI_START, "--end-train", days[T_HIST - 1],
+            "--end-predict", days[-1], "--backend", "pallas",
+            "--num-epsilon", str(N_EPS), "--pareto-chunk", str(CHUNK),
+            "--num-monte-carlo", str(N_MC),
+            "--num-prescriptions", str(N_PRESCRIPTIONS),
+            "--prescriptions-out", str(out),
+            "--mesh", f"{MESH_SLOTS}x1", "--device", "cuda",
+            "--cpu-devices", str(MESH_SLOTS)]
+    for tag in ("cold", "warm"):
+        reset_launches()
+        t0 = time.perf_counter()
+        check(xprize_cli.main(argv) == 0, "mesh cli: exit code")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = read_launches()
+    same = out.read_bytes() == (CLI_DIR / "presc_warm.csv").read_bytes()
+    log(f"mesh cli --mesh {MESH_SLOTS}x1 (warm): wall={wall:.3f}s "
+        f"launches={n}; prescriptions byte-identical to the single-device "
+        f"CLI's: {same} [{card}]")
+    check(same, "mesh cli: other prescriptions than the single-device CLI")
+    check(n["ekf3"] >= 4 * MESH_SLOTS
+          and n["ekf6"] == MESH_SLOTS * N_EPS // CHUNK,
+          f"mesh cli: launches {n}")
+
+
+def mesh_backtest_run(device, bt, card):
+    """The backtest cell with dp = 5 (5 slots on the one card) against the
+    single-device run, bit for bit."""
+    cfg = PipelineConfig(backend="pallas", smoother_gain="solve")
+    T = bt.observations.shape[1]
+    args = (bt, MINS, NPI_MAXES_DEFAULT, T - BT_STARTS, BT_STARTS, BT_AHEAD,
+            cfg)
+    out = {}
+    for name, mesh in (("1 slot", None),
+                       ("dp=5", make_mesh(devices=[device] * MESH_SLOTS))):
+        for _ in range(2):
+            reset_launches()
+            t0 = time.perf_counter()
+            res = forecast_quality_assessment(*args, dtype=F32, mesh=mesh)
+            torch.cuda.synchronize()
+            out[name] = res, time.perf_counter() - t0, read_launches()
+    (ref, ref_wall, _), (res, wall, n) = out["1 slot"], out["dp=5"]
+    fields = lambda r: {"a2": r.trained.a2} | {
+        k: getattr(r, k) for k in ("est_error_plus", "est_error_smooth",
+                                   "mean_error_smooth",
+                                   "median_error_smooth")}
+    same_bits(fields(res), fields(ref), "mesh backtest")
+    check(n["ekf3"] == 3 * MESH_SLOTS, f"mesh backtest: launches {n}")
+    log(f"mesh backtest dp={MESH_SLOTS} ({R_REGIONS} x {BT_STARTS} lanes, "
+        f"warm): wall={wall:.3f}s against {ref_wall:.3f}s on one slot; "
+        f"launches={n}; bit-identical [{card}]")
+
+
+def mesh_vmap_run(device, card):
+    """The "vmap" backend at vmap_reference_check's size (16 regions x
+    400 + 20 days, 8 eps in chunks of 4, float64) on one slot and on two
+    slots of the one card (dp = 2): the sweep's generic EKS at half the
+    batch. Bit for bit where cuSOLVER's batched SVD gives the same bits at
+    half the batch; otherwise graded by ROADMAP's pinv rule (a lane whose
+    prior covariances reach cond >= ILL_COND may differ; every other lane's
+    prescriptions equal, its costs at VMAP_REF_TOL), with what differed
+    printed."""
+    T_h, H = 400, 20
+    f64 = torch.float64
+    bt, bf, actual, _ = xprize_inputs(16, T_h, H, seed=1)
+    cfg = PipelineConfig(backend="vmap", pareto_chunk=4, num_monte_carlo=32)
+    eps = epsilon_grid(8).numpy()
+    u_random = random_npi_schedules(torch.Generator().manual_seed(1), 32,
+                                    MINS, NPI_MAXES_DEFAULT, H)
+    out = {}
+    for name, mesh in (("1 slot", None),
+                       ("dp=2", make_mesh(devices=[device] * 2))):
+        reset_launches()
+        t0 = time.perf_counter()
+        out[name] = run_pipeline(
+            bt, bf, actual, T_h, WEIGHTS, eps, MINS, NPI_MAXES_DEFAULT, T_h,
+            cfg, dtype=f64, device=None if mesh else device,
+            u_random=u_random, mesh=mesh)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(not any(read_launches().values()),
+              "mesh vmap: an EKS kernel launched")
+        log(f"mesh vmap {name}: wall={wall:.3f}s [{card}]")
+    ref, res = out["1 slot"], out["dp=2"]
+    got, want = xprize_fields(res), xprize_fields(ref)
+    bits = {n: bit_equal(got[n], want[n]) for n in want}
+    if all(bits.values()):
+        log("mesh vmap dp=2: bit-identical J0, J1, u_prescribed, a2, front, "
+            "s_hist")
+        return
+    check(bits["a2"], "mesh vmap: the replicated train stage differs")
+    cond = sweep_max_cond(cfg, bt, ref.trained, bf, eps, T_h)
+    calm = cond < ILL_COND
+    u_diff = (res.pareto["u_prescribed"] != ref.pareto["u_prescribed"]
+              ).flatten(2).any(dim=-1).cpu()
+    ratios = {f: close_ratio(res.pareto[f].cpu()[calm],
+                             ref.pareto[f].cpu()[calm], VMAP_REF_TOL)
+              for f in ("J0", "J1")}
+    log(f"mesh vmap dp=2: not bit-identical ({bits}); prescriptions differ "
+        f"on {int(u_diff.sum())} of {u_diff.numel()} lanes "
+        f"({int((u_diff & calm).sum())} with cond(P-) < {ILL_COND:.0e}); "
+        f"well-conditioned costs at {ratios} of {VMAP_REF_TOL}")
+    check(not bool((u_diff & calm).any()) and max(ratios.values()) <= 1.0,
+          "mesh vmap: a well-conditioned sweep lane differs")
+
+
+def mesh_multihost_runs(card):
+    """The 2-process x 2-slot dry run, both processes on cuda:0 through
+    Gloo, for "lanes" and "pallas": J0 and a2 within 1e-9 of the
+    single-process reference (run_multihost_dryrun raises otherwise), the
+    workers' kernels launched."""
+    for backend in ("lanes", "pallas"):
+        t0 = time.perf_counter()
+        out = run_multihost_dryrun(n_devices=4, n_processes=2,
+                                   backend=backend, timeout=300,
+                                   verbose=False, device="cuda:0")
+        wall = time.perf_counter() - t0
+        workers = [line for log_ in out["logs"] for line in
+                   log_.splitlines() if line.startswith("[worker")]
+        check(len(workers) == 2 and all("backend=gloo" in w
+                                        and "'ekf6': 0" not in w
+                                        and "'ekf3': 0" not in w
+                                        for w in workers),
+              f"multihost {backend}: {workers}")
+        log(f"multihost dry run [{backend}]: 2 processes x 2 slots on "
+            f"cuda:0 (Gloo): max|dJ0|={out['max_abs_diff']:.3e} "
+            f"max|da2|={out['max_abs_diff_a2']:.3e} against one process; "
+            f"{wall:.1f}s with 3 process starts [{card}]")
+        for w in workers:
+            log(f"  {w}")
+
+
+def parallel_kf_check(card):
+    """parallel_kalman at T = 4096, m = 3 (a multi-year daily series), on
+    the card against the CPU, float64: every output within 1e-9 of its
+    largest magnitude."""
+    T, m, n = 4096, 3, 1
+    rng = np.random.default_rng(11)
+    A0 = np.eye(m) + 0.05 * rng.standard_normal((m, m))
+    A0 = 0.97 * A0 / np.max(np.abs(np.linalg.eigvals(A0)))
+    Hm = rng.standard_normal((n, m))
+    x, ys = rng.standard_normal(m), []
+    for _ in range(T):
+        x = A0 @ x + 0.1 * rng.standard_normal(m)
+        ys.append(Hm @ x + 0.3 * rng.standard_normal(n))
+    y = np.stack(ys)
+    y[1000:1100] = np.nan
+    y[-200:] = np.nan
+    system = (np.tile(A0, (T, 1, 1)), np.tile(0.01 * np.eye(m), (T, 1, 1)),
+              np.tile(Hm, (T, 1, 1)), np.tile(0.09 * np.eye(n), (T, 1, 1)),
+              y, np.zeros(m), np.eye(m))
+    walls, res = {}, {}
+    # the card side as a user calls it: NumPy arrays, which go to the card
+    sides = (("card", system),
+             ("cpu", [torch.as_tensor(a, dtype=torch.float64)
+                      for a in system]))
+    for side, args in sides:
+        for _ in range(2):
+            t0 = time.perf_counter()
+            res[side] = parallel_kalman(*args)
+            torch.cuda.synchronize()
+            walls[side] = time.perf_counter() - t0
+    errs = {}
+    for name, a, b in zip(res["cpu"]._fields, res["card"], res["cpu"]):
+        check(a.device.type == "cuda" and a.dtype == torch.float64
+              and bool(torch.isfinite(a).all()),
+              f"parallel_kalman: {name} not finite on the card")
+        errs[name] = float((a.cpu() - b).abs().max() / b.abs().max())
+    log(f"parallel_kalman T={T} m={m} float64, card vs CPU (max error over "
+        f"the largest magnitude): "
+        + " ".join(f"{k}={v:.3e}" for k, v in errs.items())
+        + f"; warm card {walls['card']:.3f}s, CPU {walls['cpu']:.3f}s "
+        f"[{card}]")
+    check(max(errs.values()) <= PKF_TOL,
+          f"parallel_kalman: card vs CPU {errs} > {PKF_TOL}")
+
+
+def mesh_phase(device, bt, bf, actual, cli_files):
+    """The device mesh and the multi-process runs (slice 7), then the
+    associative-scan Kalman filter. The one card carries every slot: the
+    runs check the split, the per-slot kernel geometry, the gather, the
+    rendezvous and bit parity, and say nothing of scaling. Returns the
+    5 x 1 XPRIZE run's launches."""
+    t0 = time.perf_counter()
+    card = card_line()
+    log(f"viz: {viz.__name__} imported; matplotlib "
+        f"{'present' if importlib.util.find_spec('matplotlib') else 'absent'}"
+        " on this machine (viz imports it on the first plot)")
+    launches = mesh_xprize_runs(device, bt, bf, actual, card)
+    mesh_cli_run(*cli_files, card)
+    mesh_backtest_run(device, bt, card)
+    mesh_vmap_run(device, card)
+    mesh_multihost_runs(card)
+    parallel_kf_check(card)
+    log(f"slice 7 (mesh, multi-process, parallel_kalman): "
+        f"{time.perf_counter() - t0:.1f}s [{card}]")
+    return launches
+
+
 def kernel_entries(measured, xprize_launches, stencil_cases, sim_launches,
-                   pairwise_cases, cli_launches, backtest, slice5_launches):
+                   pairwise_cases, cli_launches, backtest, slice5_launches,
+                   roofline, mesh_launches):
     """One entry per kernel for the JSON line: its launches on its path's
     warm run, its largest error against the plain version, and kernel,
     plain-version, bound and library times at its largest timed shape
-    (both versions timed). Fails if a kernel never launched on its path."""
+    (both versions timed); mesh_launches, its launches on the warm 5 x 1
+    mesh XPRIZE run (MESH_SLOTS slots of the card, mesh_slots). Fails if a
+    kernel never launched on its path."""
     kernels = []
     for name in ("ekf3", "ekf6"):
         big = max((m for m in measured[name] if m["ms"] is not None),
@@ -2842,12 +3169,16 @@ def kernel_entries(measured, xprize_launches, stencil_cases, sim_launches,
         n100k_ms=pairwise_cases[-1]["big_ms"],
         n100k_bound_ms=pairwise_cases[-1]["big_bound_ms"],
         shape=f"N={timed['N']} O={timed['O']} float32"))
+    kernels.append(roofline)
     kernels = [dict(name=name, route="cuda",
                     **{f: v for f, v in KERNELS[name].items()
-                       if f not in ("run", "plain")}, **k)
+                       if f not in ("run", "plain")}, **k,
+                    mesh_launches=mesh_launches[name], mesh_slots=MESH_SLOTS)
                for name, k in zip(KERNELS, kernels)]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} never launched on its path")
+    for name in ("ekf3", "ekf6"):
+        check(mesh_launches[name] > 0, f"{name} never launched on the mesh")
     return kernels
 
 
@@ -2895,7 +3226,7 @@ def main():
     walkers_phase(device)
     sim, sim_launches = sim_phase(device)
     pairwise_cases = pairwise_phase(device, sim.p)
-    roofline_phase(device)
+    roofline = roofline_phase(device)
 
     # the XPRIZE product's own entry point and the backtest (slice 3)
     cli_launches, _, cli_files = cli_phase(device)
@@ -2911,9 +3242,13 @@ def main():
     # the theory studies and the ML stack (slice 6)
     slice6_phase(device)
 
+    # the device mesh, the multi-process runs and parallel_kalman (slice 7)
+    mesh_launches = mesh_phase(device, bt, bf, actual, cli_files)
+
     kernels = kernel_entries(measured, xprize_launches, stencil_cases,
                              sim_launches, pairwise_cases, cli_launches,
-                             backtest, slice5_launches)
+                             backtest, slice5_launches, roofline,
+                             mesh_launches)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,7 @@ The JAX package beside it is the reference: the tests run both on the same
 inputs and hold each module of the port against its counterpart. Module
 names mirror the JAX package's, so each counterpart is easy to find.
 
-Six slices are ported. The XPRIZE product runs from its own entry
+Every module of the JAX package but its JAX plumbing is ported. The XPRIZE product runs from its own entry
 points: the CLI (python -m epidemicmodeling_torch.pipelines.xprize_cli) and
 pipelines.train_predict_prescribe read the OxCGRT CSVs without pandas and
 run pipelines.run_pipeline, on the batch-last backends with the two EKF/EKS
@@ -24,8 +24,11 @@ spatial.walkers.walking_sources_sim, spatial.population_motion_sim) runs
 with the diffusion-stencil and pairwise-force kernels. The theory studies
 (the SIR and SEIRP models, analysis/) and the ML stack (ml/: features,
 ridge and ARX, epsilon-SVR, the LSTM forecasters) run as tensor ops and
-cuDNN, with no kernel of their own. All four kernels are written by hand in CUDA C++ for
-Hopper (csrc/, ops/cuda/). The entry points run on the CUDA card unless the
+cuDNN, with no kernel of their own. The pipeline, the backtest and the CLI
+take a device mesh (parallel/: several slots, also across processes, split
+the EKS kernels' lanes), and ops.parallel_kalman and viz/ complete the
+port. All five kernels are written by hand in CUDA C++ for Hopper (csrc/,
+ops/cuda/). The entry points run on the CUDA card unless the
 caller passes CPU tensors or device="cpu"; for CPU tensors each kernel
 wrapper runs its plain PyTorch version.
 
@@ -35,7 +38,8 @@ pipelines    config, batched stages, run_pipeline, the CSV entry point and
              CLI, checkpoint files, the forecast-quality backtest, the
              training-only entry point and the standalone prescriptor
 spatial      diffusion CA, random-walk sources, agent sim with social forces
-ops          the generic and the batch-last EKF/EKS cores, the CUDA kernels,
+ops          the generic and the batch-last EKF/EKS cores, the CUDA kernels
+             and their lane sharding, the associative-scan Kalman filter,
              AR fits and forecasts, smoothing filters, filter health
 models       SI-alpha, costate and time-reversed systems (generic and
              batch-last), the SI, SI-alpha, SIR and SEIRP rollouts
@@ -53,6 +57,8 @@ data         pandas-free OxCGRT and JHU loaders and XPRIZE CSV writers,
              frames and CSVs
 utils        NaN-ordered clips, moving averages, dates, the entry points'
              default device
+parallel     the device mesh, the multi-process runs and their dry run
+viz          the figures and the spatial animations (matplotlib)
 """
 
 __version__ = "0.1.0"

@@ -24,6 +24,7 @@ the same computation on the port's batch-last core, in the inputs' dtype.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -31,6 +32,7 @@ import torch
 from ..ekf_bl import ekf_smoother_bl
 from ...models.batch_last import si_alpha_ekf_system_bl
 from . import build as _build
+from .shard import map_lanes
 
 M3 = 3
 NPI = 12
@@ -255,19 +257,25 @@ def pack_ekf3_args(u_bl, x_bl, Rv_bl, params_bl, Q_bl, s_init_bl,
 
 def ekf3_lanes(u_bl, x_bl, Rv_bl, params_bl, Q_bl, s_init_bl, Ps_init_bl,
                s_final_bl=None, Ps_final_bl=None, gamma_discount=0.995,
-               obs_type="NEWCASES"):
+               obs_type="NEWCASES", mesh=None):
     """Param-packing glue around ``ekf3`` for the pipeline (the counterpart
-    of ekf3_pallas_lanes, epidemicmodeling_tpu/ops/pallas/ekf3_kernel.py:475,
-    without the lane padding: the kernel masks its ragged edge). On a CUDA
-    device the kernel runs in float32 and its outputs are cast back to the
-    caller's dtype; on the CPU the plain version runs in that dtype.
+    of ekf3_pallas_lanes, epidemicmodeling_tpu/ops/pallas/ekf3_kernel.py:475;
+    no lane padding without a mesh: the kernel masks its ragged edge). On a
+    CUDA device the kernel runs in float32 and its outputs are cast back to
+    the caller's dtype; on the CPU the plain version runs in that dtype.
+
+    mesh: a parallel.Mesh of more than one slot splits the lanes over its
+    slots, region-major ("dp", "ep"), one launch a slot (ops/cuda/shard.py),
+    padded to a multiple of the slot count; the outputs come back on the
+    lead slot.
 
     All arrays batch-last. Returns (S_SMOOTH, S_PLUS, S_MINUS), each
     (T, 3, B)."""
     fdt = x_bl.dtype
     kdt = torch.float32 if x_bl.is_cuda else fdt
-    outs = ekf3(*pack_ekf3_args(u_bl, x_bl, Rv_bl, params_bl, Q_bl,
-                                s_init_bl, Ps_init_bl, s_final_bl,
-                                Ps_final_bl, kdt),
-                gamma_discount=gamma_discount, obs_type=obs_type)
+    args = pack_ekf3_args(u_bl, x_bl, Rv_bl, params_bl, Q_bl, s_init_bl,
+                          Ps_init_bl, s_final_bl, Ps_final_bl, kdt)
+    run = functools.partial(ekf3, gamma_discount=gamma_discount,
+                            obs_type=obs_type)
+    outs = map_lanes(run, mesh, args, ("dp", "ep"), n_out=3)
     return tuple(o.to(fdt) for o in outs)

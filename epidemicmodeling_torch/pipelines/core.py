@@ -15,10 +15,17 @@ core, ops/ekf_bl.py) for CPU tensors. "vmap" runs the generic EKF/EKS core
 cfg.smoother_gain (the MATLAB-exact "pinv" by default) and any
 cfg.beta_ekf; it launches no hand-written kernel. The device is the one the
 batch tensors live on (see device_batch).
+
+mesh= (parallel.Mesh): the stages run on the mesh's lead slot, and each EKS
+call splits its lanes over the slots (ops/cuda/shard.py): ekf3 region-major,
+the sweep's ekf6 (or, on "vmap", its generic EKS) epsilon-major. The region
+inputs, the rollouts, the costs, the regressions and the Monte Carlo stay
+replicated on the lead slot (parallel.mesh.shard_region_batch).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -30,7 +37,9 @@ from ..models.costate import si_alpha_costate_ekf_system
 from ..models.si_alpha import si_alpha_ekf_system, si_alpha_step_fields
 from ..ops.cuda import ekf6_kernel
 from ..ops.cuda.ekf3_kernel import ekf3_lanes, rho_from_priors
+from ..ops.cuda.shard import map_lanes
 from ..ops.ekf import ekf_smoother
+from ..parallel.mesh import mesh_device, validate_pareto_chunk
 from ..regression import (lasso_cv, nnls_with_intercept,
                           robust_affine_fit_elementwise)
 from ..utils.device import resolve_device
@@ -227,10 +236,12 @@ def ekf3_lane_inputs(u, obs, params, R_v, init):
             bl(init.Q), bl(init.s_init), bl(init.Ps_init))
 
 
-def _run_ekf3(cfg, u, obs, params, R_v, init) -> EKF3Result:
+def _run_ekf3(cfg, u, obs, params, R_v, init, mesh=None) -> EKF3Result:
     """3-state EKF/EKS over all regions: u (R, T, P), obs and R_v (R, T).
-    "vmap": the generic core, one filter a region. Otherwise the CUDA kernel
-    on a card (its plain version on the CPU), rho from the stored priors."""
+    "vmap": the generic core, one filter a region (replicated: a mesh does
+    not split it, as the JAX package's vmap backend does not). Otherwise the
+    CUDA kernel on a card (its plain version on the CPU), its region lanes
+    split over ``mesh``, rho from the stored priors."""
     if cfg.backend == "vmap":
         res = ekf_smoother(
             si_alpha_ekf_system(cfg.observation_type), u, obs, params,
@@ -243,7 +254,8 @@ def _run_ekf3(cfg, u, obs, params, R_v, init) -> EKF3Result:
         u, obs, params, R_v, init)
     ssm, _, sm = ekf3_lanes(
         u_bl, x_bl, Rv_bl, params_bl, Q_bl, s0_bl, Ps0_bl,
-        gamma_discount=cfg.gamma_ekf, obs_type=cfg.observation_type)
+        gamma_discount=cfg.gamma_ekf, obs_type=cfg.observation_type,
+        mesh=mesh)
     rho = rho_from_priors(sm, x_bl, Rv_bl, cfg.inv_monitor_len,
                           obs_type=cfg.observation_type)
     return EKF3Result(torch.movedim(ssm, -1, 0), rho.T)
@@ -274,12 +286,13 @@ def _regress(cfg: PipelineConfig, x_data, y_data):
 
 def train_regions(batch, npi_mins, npi_maxes, num_regression_days,
                   cfg: PipelineConfig = PipelineConfig(), dtype=None,
-                  device=None) -> TrainOutputs:
+                  device=None, mesh=None) -> TrainOutputs:
     """Two-round EKF + regression training over all regions at once
     (TrainPredictPrescribeNPI.m:199-354). batch: RegionBatch over the
-    TRAINING window (no forecast horizon)."""
+    TRAINING window (no forecast horizon). mesh: see the module
+    docstring."""
     check_config(cfg)
-    batch, fd, dev = device_batch(batch, dtype, device)
+    batch, fd, dev = device_batch(batch, dtype, mesh_device(mesh, device))
     init = region_init(batch, cfg, fd, dev)
     obs, npis = batch.observations, batch.npis
     R, T = obs.shape
@@ -288,7 +301,8 @@ def train_regions(batch, npi_mins, npi_maxes, num_regression_days,
     R_v = batch.obs_noise_var
 
     # ROUND 1: zero control input, zero NPI influence (:199-248)
-    res1 = _run_ekf3(cfg, torch.zeros_like(npis), obs, params, R_v, init)
+    res1 = _run_ekf3(cfg, torch.zeros_like(npis), obs, params, R_v, init,
+                     mesh)
 
     # regression 1: alpha ~ (NPI_MAX - NPI) over the last regression window
     maxes = to_tensor(npi_maxes, fd, dev)
@@ -296,7 +310,8 @@ def train_regions(batch, npi_mins, npi_maxes, num_regression_days,
     a1, b1 = _regress(cfg, x_win, res1.s_smooth[:, T - nrd:, 2])
 
     # ROUND 2: historic NPIs + learned influence (:295-307)
-    res2 = _run_ekf3(cfg, npis, obs, dict(params, a=a1, b=b1), R_v, init)
+    res2 = _run_ekf3(cfg, npis, obs, dict(params, a=a1, b=b1), R_v, init,
+                     mesh)
     a2, b2 = _regress(cfg, x_win, res2.s_smooth[:, T - nrd:, 2])
 
     trained = TrainedRegionParams(
@@ -366,7 +381,7 @@ def forecast_scenarios(batch_full, trained: TrainedRegionParams,
                        T_hist: int, cfg: PipelineConfig = PipelineConfig(),
                        actual_npis=None, dtype=None, device=None,
                        generator: Optional[torch.Generator] = None,
-                       noise=None):
+                       noise=None, mesh=None):
     """Fixed / zero / max (+ optional actual) NPI forecast scenarios
     (TrainPredictPrescribeNPI.m:367-412).
 
@@ -374,10 +389,11 @@ def forecast_scenarios(batch_full, trained: TrainedRegionParams,
     observations in the horizon. With cfg.stochastic_forecast the three
     rollouts share one (R, H, 3) noise draw, as the JAX package's share one
     key: ``noise``, or drawn from ``generator`` (see forecast_noise).
-    Returns (dict of ScenarioResult, the historic smoothed states s_hist
-    (R, T_hist, 3))."""
+    mesh: see the module docstring. Returns (dict of ScenarioResult, the
+    historic smoothed states s_hist (R, T_hist, 3))."""
     check_config(cfg)
-    batch_full, fd, dev = device_batch(batch_full, dtype, device)
+    batch_full, fd, dev = device_batch(batch_full, dtype,
+                                       mesh_device(mesh, device))
     obs, npis = batch_full.observations, batch_full.npis
     R, T_full = obs.shape
     P = npis.shape[-1]
@@ -397,7 +413,7 @@ def forecast_scenarios(batch_full, trained: TrainedRegionParams,
 
     # A) the fixed-input scenario first: its smoothed states are the shared
     # historic trajectory of every rollout (:380-382,398,408,481)
-    s_hist = _run_ekf3(cfg, u_fixed, obs, params, R_v, init).s_smooth[
+    s_hist = _run_ekf3(cfg, u_fixed, obs, params, R_v, init, mesh).s_smooth[
         :, :T_hist, :]
     noise = forecast_noise(cfg, (R, H, 3), fd, dev, generator, noise)
 
@@ -414,7 +430,7 @@ def forecast_scenarios(batch_full, trained: TrainedRegionParams,
     if actual_npis is not None:
         # Z) the actual NPIs (:367-370): their own EKS trajectory, no rollout
         u_act = to_tensor(actual_npis, fd, dev)
-        ssm = _run_ekf3(cfg, u_act, obs, params, R_v, init).s_smooth
+        ssm = _run_ekf3(cfg, u_act, obs, params, R_v, init, mesh).s_smooth
         s, i, al = ssm[..., 0], ssm[..., 1], ssm[..., 2]
         J0, J1 = npi_cost(s * i * al, u_act, w)
         out["actual"] = ScenarioResult(s, i, al, u_act, J0, J1)
@@ -505,7 +521,7 @@ def sweep_eks_vmap(cfg, lanes, outputs="light"):
 
 
 def _sweep_chunk_body(eps_chunk, prep, s_hist, *, cfg, T_hist, Ec,
-                            noise=None):
+                      noise=None, mesh=None):
     """One epsilon chunk of the Pareto sweep on Ec * R lanes (epsilon-major,
     lane = e * R + r): the 6-state EKS with NaN future inputs (the ekf6
     kernel, or on "vmap" the generic core, sweep_eks_vmap), the rollout of
@@ -514,7 +530,8 @@ def _sweep_chunk_body(eps_chunk, prep, s_hist, *, cfg, T_hist, Ec,
     the prescription, and the smoother's zero last row (core.py:690).
     noise: (Ec, R, H, 3) standard-normal draws of the rollout, one (R, H, 3)
     draw an epsilon as the JAX package's keys give them, or None for the
-    deterministic rollout.
+    deterministic rollout. mesh: the EKS lanes split over its slots,
+    epsilon-major ("ep", "dp"), the rest on the lead slot.
     Returns (J0, J1 (Ec, R), s, i, alpha (Ec, R, T) or None,
     u_prescribed (Ec, R, H, P))."""
     obs = prep["obs"]
@@ -526,14 +543,26 @@ def _sweep_chunk_body(eps_chunk, prep, s_hist, *, cfg, T_hist, Ec,
     rp = lanes["params"]
 
     if cfg.backend == "vmap":
-        u_sm = sweep_eks_vmap(cfg, lanes).u_opt_smooth.permute(1, 2, 0)
+        keys = ["u", "x", "Rv", "s_init", "Ps_init", "s_final", "Ps_final",
+                "Q"]
+        names = list(rp)
+
+        def run(*a):
+            part = dict(zip(keys, a), params=dict(zip(names, a[len(keys):])))
+            return (sweep_eks_vmap(cfg, part).u_opt_smooth.permute(1, 2, 0),)
+
+        u_sm, = map_lanes(run, mesh, [lanes[k] for k in keys]
+                          + [rp[k] for k in names], ("ep", "dp"), 1)
     else:
         # the kernel runs float32 on a card; its plain version runs the
         # caller's dtype on the CPU
         kdt = torch.float32 if obs.is_cuda else fdtype
-        _, u_sm, _ = ekf6_kernel.ekf6(
-            *ekf6_kernel.pack_ekf6_args(lanes, kdt),
-            gamma_discount=cfg.gamma_ekf, obs_type=cfg.observation_type)
+        ekf6 = functools.partial(ekf6_kernel.ekf6,
+                                 gamma_discount=cfg.gamma_ekf,
+                                 obs_type=cfg.observation_type)
+        u_sm, = map_lanes(lambda *a: ekf6(*a)[1:2], mesh,
+                          ekf6_kernel.pack_ekf6_args(lanes, kdt),
+                          ("ep", "dp"), 1)
         u_sm = u_sm.to(fdtype)                            # (T, P, Bl)
 
     u_presc_bl = u_sm[T_hist:]                            # (H, P, Bl)
@@ -582,7 +611,7 @@ def pareto_prescribe(batch_full, trained: TrainedRegionParams,
                      npi_mins, npi_maxes, T_hist: int,
                      cfg: PipelineConfig = PipelineConfig(), dtype=None,
                      device=None, generator: Optional[torch.Generator] = None,
-                     noise=None):
+                     noise=None, mesh=None):
     """The Pareto sweep (TrainPredictPrescribeNPI.m:414-494): for every
     epsilon, the 6-state optimal-control EKS with NaN future inputs and
     costate terminal conditions, the re-simulated prescribed schedule, and
@@ -590,7 +619,8 @@ def pareto_prescribe(batch_full, trained: TrainedRegionParams,
     (the last chunk padded with the last epsilon). With
     cfg.stochastic_forecast each epsilon's rollout takes its own (R, H, 3)
     draw: ``noise`` (E, R, H, 3), else drawn chunk by chunk from
-    ``generator``. Returns a dict with J0/J1 (E, R), trajectories s/i/alpha
+    ``generator``. mesh: see the module docstring (cfg.pareto_chunk must
+    be a multiple of its ep axis). Returns a dict with J0/J1 (E, R), trajectories s/i/alpha
     (E, R, T_full) or None, prescriptions u_prescribed (E, R, H, P) and
     epsilon (E,)."""
     check_config(cfg)
@@ -599,7 +629,9 @@ def pareto_prescribe(batch_full, trained: TrainedRegionParams,
         raise ValueError("epsilon_values is empty — pass at least one "
                          "tradeoff point (control.epsilon_grid(n) builds "
                          "the reference's log+linear grid)")
-    batch_full, fd, dev = device_batch(batch_full, dtype, device)
+    validate_pareto_chunk(cfg.pareto_chunk, mesh)
+    batch_full, fd, dev = device_batch(batch_full, dtype,
+                                       mesh_device(mesh, device))
     prep = pareto_prep(cfg, batch_full, trained, init, npi_weights,
                         npi_mins, npi_maxes, T_hist, fd, dev)
     s_hist = to_tensor(s_hist, fd, dev)
@@ -621,7 +653,7 @@ def pareto_prescribe(batch_full, trained: TrainedRegionParams,
     for c0 in range(0, E_pad, chunk):
         out = _sweep_chunk_body(
             eps_padded[c0:c0 + chunk], prep, s_hist, cfg=cfg, T_hist=T_hist,
-            Ec=chunk,
+            Ec=chunk, mesh=mesh,
             noise=(noise[c0:c0 + chunk] if noise is not None else
                    forecast_noise(cfg, (chunk, R, H, 3), fd, dev,
                                   generator)))

@@ -14,7 +14,8 @@ testScripts/testIEEEJSTSP2021ArticleResults.m):
 The reference reruns a full EKF per (region, start) serially; here the
 (region, start) grid is B = R * S lanes (lane = r * S + s), so one call runs
 them all: on the "lanes"/"pallas" backends one ekf3 call (the CUDA kernel B1
-on a card, its plain version on the CPU), on "vmap" one batch of the
+on a card, its plain version on the CPU; one a slot of a mesh), on "vmap"
+one batch of the
 generic EKF/EKS core with outputs "light"
 (epidemicmodeling_tpu/pipelines/forecast_quality.py:228).
 """
@@ -28,6 +29,7 @@ import torch
 from ..models.si_alpha import si_alpha_ekf_system
 from ..ops.cuda.ekf3_kernel import ekf3_lanes
 from ..ops.ekf import ekf_smoother
+from ..parallel.mesh import mesh_device
 from .config import PipelineConfig
 from .core import (check_config, device_batch, stage_params, to_tensor,
                    train_regions)
@@ -57,12 +59,19 @@ def forecast_quality_assessment(batch, npi_mins, npi_maxes,
     the last ``num_forecast_days`` days serve as holdout starts, and
     training uses the window up to T - num_forecast_days. device / dtype as
     in run_pipeline: the CUDA card unless the batch's tensors lie elsewhere
-    or device="cpu" is passed. mesh= is not ported (ROADMAP A18)."""
+    or device="cpu" is passed.
+
+    mesh: optional ("dp", "ep") parallel.Mesh. The region inputs are
+    replicated on its lead slot (parallel.mesh.shard_region_batch) and the
+    (region, start) lanes of the ekf3 call (the product's largest, R x S)
+    are split over every slot, one launch a slot; dp must divide the
+    regions."""
     check_config(cfg)
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (several devices) is not ported yet (ROADMAP A18)")
-    batch, fd, dev = device_batch(batch, dtype, device)
+    if mesh is not None and batch.observations.shape[0] % mesh.shape["dp"]:
+        raise ValueError(
+            f"{batch.observations.shape[0]} regions not divisible by "
+            f"mesh dp={mesh.shape['dp']}")
+    batch, fd, dev = device_batch(batch, dtype, mesh_device(mesh, device))
     R, T = batch.observations.shape
     S, H = int(num_forecast_days), int(max_look_ahead_days)
     T_train = T - S
@@ -80,16 +89,20 @@ def forecast_quality_assessment(batch, npi_mins, npi_maxes,
         confirmed_norm=head(batch.confirmed_norm),
         npis=head(batch.npis), obs_noise_var=head(batch.obs_noise_var))
     train_out = train_regions(train_batch, npi_mins, npi_maxes,
-                              num_regression_days, cfg)
+                              num_regression_days, cfg, mesh=mesh)
     init = train_out.init
     params = stage_params(cfg, batch, train_out.trained, npi_mins, npi_maxes,
                           fd, dev)
     pop = to_tensor(batch.population, fd, dev)
     truth = to_tensor(batch.new_cases_norm, fd, dev) * pop[:, None]
 
-    run_all = _run_all_vmap if cfg.backend == "vmap" else _run_all_lanes
-    s_plus, s_smooth = run_all(cfg, batch.observations, batch.npis,
-                               batch.obs_noise_var, params, init, S)
+    if cfg.backend == "vmap":
+        s_plus, s_smooth = _run_all_vmap(cfg, batch.observations, batch.npis,
+                                         batch.obs_noise_var, params, init, S)
+    else:
+        s_plus, s_smooth = _run_all_lanes(
+            cfg, batch.observations, batch.npis, batch.obs_noise_var, params,
+            init, S, mesh)
     err_plus, err_smooth = _errors_from_states(s_plus, s_smooth, truth, pop,
                                                H)
 
@@ -129,13 +142,15 @@ def backtest_lane_inputs(obs, npis, R_v, params, init, S):
             tile(init.s_init), tile(init.Ps_init))
 
 
-def _run_all_lanes(cfg, obs, npis, R_v, params, init, S):
-    """Every (region, start) filter in one ekf3 call. Returns the filtered
-    and smoothed states, each (R, S, T, 3)."""
+def _run_all_lanes(cfg, obs, npis, R_v, params, init, S, mesh=None):
+    """Every (region, start) filter in one ekf3 call (one a slot of
+    ``mesh``). Returns the filtered and smoothed states, each
+    (R, S, T, 3)."""
     R, T = obs.shape
     ss_bl, sp_bl, _ = ekf3_lanes(
         *backtest_lane_inputs(obs, npis, R_v, params, init, S),
-        gamma_discount=cfg.gamma_ekf, obs_type=cfg.observation_type)
+        gamma_discount=cfg.gamma_ekf, obs_type=cfg.observation_type,
+        mesh=mesh)
     back = lambda a: torch.movedim(a, -1, 0).reshape(R, S, T, 3)
     return back(sp_bl), back(ss_bl)
 

@@ -6,8 +6,8 @@ train_predict_prescribe, which slices the OxCGRT table into region batches
 (build_batches_from_frames), and run_pipeline on those batches: a batched
 two-round EKF + regression trainer, forecast scenarios, the Pareto epsilon
 sweep of the 6-state optimal-control EKS, and a Monte-Carlo random-policy
-baseline, with no Python loop over regions. The device mesh is not ported
-yet (ROADMAP A18).
+baseline, with no Python loop over regions; optionally over a device mesh
+(parallel.make_mesh), whose slots split the EKS kernels' lanes.
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ from ..data.oxford import load_geo_list, load_oxford_data, load_populations
 from ..data.preprocess import (OXFORD_NPI_COLUMNS, build_region_batch,
                                forward_fill_npis, preprocess_region)
 from ..utils.dates import num_days_between
+from ..parallel.mesh import mesh_device, validate_pareto_chunk
 from ..utils.device import resolve_device
 from .config import PipelineConfig
 from .core import (TrainOutputs, TrainedRegionParams, check_config,
@@ -194,11 +195,9 @@ def train_predict_prescribe(
     generator seeds what is random (the Monte-Carlo schedules, stochastic
     forecasts), taking the JAX package's ``key``'s place. device: the CUDA
     card unless told otherwise (device="cpu"); resolved before any file is
-    read. mesh: not ported (ROADMAP A18)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (several devices) is not ported yet (ROADMAP A18)")
-    device = resolve_device(device)
+    read. mesh: optional ("dp", "ep") parallel.Mesh (see run_pipeline); the
+    device is then its lead slot."""
+    device = resolve_device(mesh_device(mesh, device))
     npi_columns = list(npi_columns or OXFORD_NPI_COLUMNS)
     P = len(npi_columns)
     npi_mins = np.zeros(P) if npi_mins is None else np.asarray(npi_mins, float)
@@ -248,7 +247,7 @@ def train_predict_prescribe(
     result = run_pipeline(batch_train, batch_full, actual_npis, T_hist,
                           weights, epsilon_values, npi_mins, npi_maxes,
                           num_regression_days, cfg, generator, dtype,
-                          trained=trained, device=device)
+                          trained=trained, device=device, mesh=mesh)
     result.stage_seconds["read_csv"] = read_s
     if trained_params_file:
         from .checkpoint import save_checkpoint
@@ -260,8 +259,8 @@ def run_pipeline(batch_train, batch_full, actual_npis, T_hist, npi_weights,
                  epsilon_values, npi_mins, npi_maxes, num_regression_days,
                  cfg: PipelineConfig = PipelineConfig(),
                  generator: torch.Generator | None = None, dtype=None,
-                 trained=None, device=None,
-                 u_random=None) -> TrainPredictPrescribeResult:
+                 trained=None, device=None, u_random=None,
+                 mesh=None) -> TrainPredictPrescribeResult:
     """Run the batched compute pipeline on prepared RegionBatches.
 
     device / dtype: where and in which precision everything runs. device
@@ -278,8 +277,25 @@ def run_pipeline(batch_train, batch_full, actual_npis, T_hist, npi_weights,
     ``generator`` unless ``u_random`` (N, H, P) gives them; so is the
     rollouts' noise with cfg.stochastic_forecast (scenarios, sweep, Monte
     Carlo, in that order).
+    mesh: optional ("dp", "ep") parallel.Mesh (parallel.make_mesh). The
+    region inputs (and actual_npis) are replicated on its lead slot, which
+    is then the device (see parallel.mesh.shard_region_batch for why:
+    bit-parity of the NNLS support selection, multi-host readability), and
+    every EKS call splits its lanes over the slots: the sweep's
+    epsilon-major lanes over ("ep", "dp"), ekf3's region lanes over ("dp",
+    "ep"). The regions must divide by dp, cfg.pareto_chunk by ep.
     """
     check_config(cfg)
+    if mesh is not None:
+        R = len(batch_train.names)
+        if R % mesh.shape["dp"]:
+            raise ValueError(
+                f"{R} regions not divisible by mesh dp={mesh.shape['dp']}; "
+                "pad the geo list or pick a different mesh")
+        # the sweep pads epsilon to whole chunks of exactly cfg.pareto_chunk,
+        # and each chunk's lanes are split with 'ep' major
+        validate_pareto_chunk(cfg.pareto_chunk, mesh)
+        device = mesh_device(mesh, device)
     batch_train, dtype, device = device_batch(batch_train, dtype, device)
     batch_full, _, _ = device_batch(batch_full, dtype, device)
 
@@ -299,7 +315,7 @@ def run_pipeline(batch_train, batch_full, actual_npis, T_hist, npi_weights,
 
     if trained is None:
         train_out = train_regions(batch_train, npi_mins, npi_maxes,
-                                  num_regression_days, cfg)
+                                  num_regression_days, cfg, mesh=mesh)
     else:
         train_out = TrainOutputs(
             _realign(trained, batch_train.names, dtype, device),
@@ -309,12 +325,12 @@ def run_pipeline(batch_train, batch_full, actual_npis, T_hist, npi_weights,
     scen, s_hist = forecast_scenarios(
         batch_full, train_out.trained, train_out.init, npi_weights,
         npi_mins, npi_maxes, T_hist, cfg, actual_npis=actual_npis,
-        generator=generator)
+        generator=generator, mesh=mesh)
     lap("scenarios")
     par = pareto_prescribe(
         batch_full, train_out.trained, train_out.init, s_hist,
         epsilon_values, npi_weights, npi_mins, npi_maxes, T_hist, cfg,
-        generator=generator)
+        generator=generator, mesh=mesh)
     lap("pareto")
     mc = monte_carlo_baseline(
         batch_full, train_out.trained, train_out.init, s_hist, npi_weights,

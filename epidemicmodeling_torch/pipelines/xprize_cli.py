@@ -18,8 +18,12 @@ Usage:
         --prescriptions-out presc.csv --predictions-out pred.csv
 
 It runs on the CUDA card (the hand-written kernels) unless ``--device cpu``
-is given (their plain versions). The summary also records the wall time of
-reading the CSVs, of the pipeline and of writing the CSVs.
+is given (their plain versions). ``--mesh auto|DPxEP`` splits the EKS
+kernels' lanes over a mesh of slots: every card, or ``--cpu-devices N``
+slots of the device (N CPU slots, which implies ``--device cpu`` when no
+``--device`` is given; N slots a card with ``--device cuda``). The
+summary also records the wall time of reading the CSVs, of the pipeline
+and of writing the CSVs.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ import torch
 
 
 def build_arg_parser() -> argparse.ArgumentParser:
-    """The JAX CLI's options, with --device in place of --cpu-devices."""
+    """The JAX CLI's options, with --device."""
     ap = argparse.ArgumentParser(
         prog="epidemicmodeling_torch.pipelines.xprize_cli",
         description="Train-predict-prescribe NPI pipeline (XPRIZE entry point) "
@@ -93,8 +97,16 @@ def build_arg_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default=None,
                     help="torch device to run on (default: the CUDA card; "
                          "'cpu' runs the kernels' plain versions)")
+    ap.add_argument("--cpu-devices", type=int, default=None,
+                    help="N mesh slots a device: N CPU slots (implies "
+                         "--device cpu unless --device is given; runs "
+                         "--mesh without a card), or with --device cuda N "
+                         "slots on each card, which share it in turn")
     ap.add_argument("--mesh", default=None,
-                    help="several devices: not ported yet (ROADMAP A18)")
+                    help="split the EKS kernels' lanes over a device mesh: "
+                         "'auto' uses every slot (dp x ep factorization), "
+                         "or 'DPxEP' explicitly, e.g. '4x2'. Default: one "
+                         "device")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the torch.Generator behind the Monte-Carlo "
                          "schedules and the stochastic forecasts")
@@ -107,14 +119,12 @@ def main(argv=None) -> int:
     """Run the full train-predict-prescribe pipeline; writes the XPRIZE
     prescriptions/predictions CSVs and returns a process exit code."""
     args = build_arg_parser().parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError(
-            "--mesh (several devices) is not ported yet (ROADMAP A18)")
     from ..control import epsilon_grid
     from ..data import NPI_MAXES_DEFAULT, OXFORD_NPI_COLUMNS
     from ..data.oxford import load_geo_list, load_npi_costs
     from ..data.xprize_io import (read_future_ip, write_predictions_csv,
                                   write_prescriptions_csv)
+    from ..parallel.mesh import Mesh, make_mesh
     from ..utils.dates import date_range_days
     from ..utils.device import resolve_device
     from .checkpoint import load_checkpoint, save_checkpoint
@@ -122,7 +132,27 @@ def main(argv=None) -> int:
     from .core import check_config, region_init, scenario_from_schedule
     from .train_predict_prescribe import train_predict_prescribe
 
+    if args.cpu_devices and args.device is None:
+        args.device = "cpu"
     device = resolve_device(args.device)
+    mesh = None
+    if args.mesh:
+        cards = ([torch.device("cuda", i)
+                  for i in range(torch.cuda.device_count())]
+                 if device.type == "cuda" else [device])
+        slots = [d for d in cards for _ in range(args.cpu_devices or 1)]
+        if args.mesh == "auto":
+            mesh = make_mesh(devices=slots)
+        else:
+            dp, ep = (int(v) for v in args.mesh.lower().split("x"))
+            if dp * ep > len(slots):
+                raise SystemExit(f"--mesh {args.mesh} needs {dp * ep} "
+                                 f"devices, found {len(slots)}")
+            grid = np.empty(dp * ep, dtype=object)
+            grid[:] = slots[:dp * ep]
+            mesh = Mesh(grid.reshape(dp, ep), ("dp", "ep"))
+        device = mesh.lead
+        print(f"mesh: {mesh.shape} over {mesh.size} devices", file=sys.stderr)
     cfg = PipelineConfig(backend=args.backend, pareto_chunk=args.pareto_chunk,
                          observation_type=args.observation_type,
                          num_monte_carlo=args.num_monte_carlo,
@@ -161,6 +191,7 @@ def main(argv=None) -> int:
         dtype=dtype,
         trained=trained,
         device=device,
+        mesh=mesh,
     )
     stages = {k: v for k, v in res.stage_seconds.items() if k != "read_csv"}
     walls = {"read_csv": read_s + res.stage_seconds["read_csv"],

@@ -22,6 +22,7 @@ from epidemicmodeling_tpu.pipelines.forecast_quality import \
     forecast_quality_assessment as jax_backtest
 
 from epidemicmodeling_torch.ops.cuda import ekf3_kernel
+from epidemicmodeling_torch.parallel import make_mesh
 from epidemicmodeling_torch.pipelines import (PipelineConfig,
                                               forecast_quality_assessment)
 from epidemicmodeling_torch.pipelines.forecast_quality import _nanmedian
@@ -167,9 +168,12 @@ def test_backtest_refuses_unported_options(batch):
     kw = dict(_kw("S>=H"), dtype=torch.float64, device="cpu")
     with pytest.raises(TypeError, match="obs_hessian_terms"):
         forecast_quality_assessment(batch, cfg=PipelineConfig(order=2), **kw)
-    with pytest.raises(NotImplementedError, match="A18"):
+    # the mesh is ported: its dp axis must divide the 3 regions
+    with pytest.raises(ValueError, match="not divisible by mesh dp=2"):
         forecast_quality_assessment(
-            batch, cfg=PipelineConfig(backend="pallas"), mesh=object(), **kw)
+            batch, cfg=PipelineConfig(backend="pallas"),
+            mesh=make_mesh(2, device="cpu"),
+            **dict(kw, device=None))
     with pytest.raises(ValueError, match="training days"):
         forecast_quality_assessment(
             batch, cfg=PipelineConfig(backend="pallas"),

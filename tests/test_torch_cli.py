@@ -149,7 +149,8 @@ def test_cli_defaults_to_the_card_and_refuses_unported(tmp, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(_args(tmp, "card"))
-    with pytest.raises(NotImplementedError, match="A18"):
+    # the mesh is ported: a mesh larger than the slots is refused
+    with pytest.raises(SystemExit, match="needs 2 devices, found 1"):
         main(_args(tmp, "mesh", "--device", "cpu", "--mesh", "2x1"))
 
 

@@ -124,7 +124,9 @@ def test_port_imports_no_jax_or_pandas():
                    "pipelines/prescribe.py", "pipelines/train.py",
                    "ops/ar.py", "data/jhu.py", "ops/smoothing.py",
                    "ops/diagnostics.py", "analysis/shooting.py",
-                   "ml/lstm.py", "ml/svr.py", "models/seirp.py"):
+                   "ml/lstm.py", "ml/svr.py", "models/seirp.py",
+                   "parallel/mesh.py", "parallel/multihost.py",
+                   "ops/parallel_kf.py", "viz/plots.py"):
         assert os.path.join(PORT_ROOT, module) in files, module
     bad = [(os.path.relpath(f, os.path.dirname(PORT_ROOT)), mod)
            for f in files for mod in _imports(f)
