@@ -51,9 +51,12 @@ CUDA toolkit (nvcc). In order, it:
    launched twice, and the two results must agree bit for bit.
 
 9. runs the card's roofline anchors (csrc/roofline.cu, the counterpart of
-   bench.py's Pallas microkernels): a 1 GB device-memory copy and a
-   512-deep FMA chain, held against their plain versions, and prints the
-   copy rate beside the 3.35 TB/s that bound() assumes;
+   bench.py's Pallas microkernels): a 1 GiB device-memory copy (x + 1, a
+   persistent ring of TMA bulk copies) and a 512-deep FMA chain, held
+   against their plain versions (the copy bit for bit, also at ragged
+   sizes through its C entry), the copy timed in turns with PyTorch's
+   x + 1, and prints the copy rate beside the 3.35 TB/s that bound()
+   assumes;
 10. drives the XPRIZE product's own CLI (xprize_cli.main, on the card,
    --backend pallas) on XPRIZE-size CSVs written by the port's pandas-free
    synthetic frame (235 regions x 532 days): 250 epsilons in chunks of 25,
@@ -350,6 +353,10 @@ PAIRWISE_MUTANTS = {
         cfg, subject_obstacle_weight=1.2 * cfg.subject_obstacle_weight)),
 }
 ROW_CHUNK = 2048
+# the roofline copy and x + 1: timed samples of each, in turns; calls a
+# sample when timed back to back
+COPY_TURNS = 20
+COPY_BATCH = 5
 # dx != dy so that an ax/ay axis swap cannot cancel out
 STENCIL_D, STENCIL_DT, STENCIL_DX, STENCIL_DY = 1e-1, 0.004, 0.1, 0.14
 STENCIL_SHAPES = ((51, 51), (234, 167), (2048, 2048), (8191, 8193))
@@ -1256,27 +1263,117 @@ def pairwise_phase(device, sim_p):
     return out
 
 
+def copy_check_sizes(sms: int) -> list:
+    """n (float32) at the copy's schedule edges on a card of ``sms`` SMs:
+    one vector, one chunk and one full wave of chunks (a chunk for every
+    block), each +- 4 floats, two waves and a bit, a size with no round
+    factor, and 2**28 (1 GiB)."""
+    chunk = roofline_kernel.CHUNK_BYTES // 4
+    wave = roofline_kernel.BLOCKS_PER_SM * sms * chunk
+    return [4, chunk - 4, chunk, chunk + 4, wave - 4, wave, wave + 4,
+            2 * wave + 12, 4 * 3_000_017, 1 << 28]
+
+
+def copy_into(lib, x, out) -> None:
+    """x + 1 into ``out`` through a library's C entry roofline_copy (no
+    launch counted)."""
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    build.check(lib, "roofline", "roofline_copy",
+                lib.roofline_copy(x.data_ptr(), out.data_ptr(), x.numel(),
+                                  stream))
+
+
+def turns_ms(runs: dict, reps: int) -> dict:
+    """Each of ``runs`` timed in turns, ``reps`` times: a round calls them
+    in order, the next in reverse, one CUDA-event pair around each call
+    (after a warm call of each). Returns {name: [ms, ...]}."""
+    for fn in runs.values():
+        fn()
+    torch.cuda.synchronize()
+    names = list(runs)
+    times = {name: [] for name in names}
+    for r in range(reps):
+        for name in names if r % 2 == 0 else names[::-1]:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            runs[name]()
+            end.record()
+            end.synchronize()
+            times[name].append(start.elapsed_time(end))
+    return times
+
+
+def ptxas_usage(report: str, kernel: str) -> str:
+    """The -Xptxas -v line "Used ... registers, ..." of the kernel whose
+    mangled name holds ``kernel``."""
+    lines = report.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and kernel in line:
+            for nxt in lines[i + 1:]:
+                if "Compiling entry function" in nxt:
+                    break
+                if "Used" in nxt and "registers" in nxt:
+                    return nxt.split(":", 1)[1].strip()
+    return "not in the ptxas report"
+
+
 def roofline_phase(device):
-    """The card's roofline anchors: a copy (x + 1) of 1 GB and a 512-deep
-    fused multiply-add chain over 128 MB, each held against its plain
-    version and timed; prints the copy rate beside PEAK_BYTES_PER_S and the
+    """The card's roofline anchors: a copy (x + 1) of 1 GiB and a 512-deep
+    fused multiply-add chain over 128 MiB, each held against its plain
+    version and timed. The copy (a persistent ring of TMA bulk copies) is
+    first held bit for bit against x + 1 through its C entry, into
+    NaN-filled outputs, at every size of copy_check_sizes (ragged chunks
+    and waves, 1 GiB) with the library's launch geometry equal to
+    roofline_kernel.copy_geometry's; then the wrapper at 1 GiB, and the
+    wrapper and x + 1 timed in turns (COPY_TURNS samples each, one call a
+    sample, then COPY_BATCH calls back to back a sample). Prints the copy
+    rate beside PEAK_BYTES_PER_S, the ratio to x + 1 (a shortfall is
+    printed, not failed), the geometry and the kernel's registers, and the
     FMA rate beside PEAK_F32_PER_S. Returns the kernels-line entry of the
     copy (the phase's launches, its error, kernel, plain-version and bound
     times; x + 1 is one PyTorch call, so the library time is the plain
     version's)."""
     reset_launches()
     gen = torch.Generator(device).manual_seed(9)
+    lib = build.load("roofline", roofline_kernel._SIGNATURES)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    sizes = copy_check_sizes(sms)
+    for n in sizes:
+        geo = roofline_kernel.library_copy_geometry(n)
+        check(geo == roofline_kernel.copy_geometry(n, sms),
+              f"roofline copy n={n}: the library's geometry {geo} is not "
+              "roofline_kernel.copy_geometry's")
+        x = torch.rand(n, generator=gen, device=device)
+        out = torch.full_like(x, float("nan"))
+        copy_into(lib, x, out)
+        check(torch.equal(out, x + 1),
+              f"roofline copy n={n}: differs from x + 1 "
+              f"({int((out != x + 1).sum())} elements)")
+        del x, out
+    log(f"roofline copy: bit for bit x + 1 through the C entry into "
+        f"NaN-filled outputs at n = {sizes}")
     x = torch.rand(1 << 28, generator=gen, device=device)
     got = roofline_kernel.copy_plus_one(x)
     copy_err = float((got - roofline_kernel.copy_plus_one_plain(x)).abs()
                      .max())
-    check(copy_err == 0.0, "roofline copy: differs from x + 1")
+    check(torch.equal(got, x + 1), "roofline copy: differs from x + 1")
     del got
     copy_bound = bound(2 * 4 * x.numel(), x.numel())
-    copy_ms = cuda_ms(lambda: roofline_kernel.copy_plus_one(x), reps=10)
-    plain_ms = cuda_ms(lambda: roofline_kernel.copy_plus_one_plain(x),
-                       reps=10)
+    runs = {"kernel": lambda: roofline_kernel.copy_plus_one(x),
+            "x + 1": lambda: roofline_kernel.copy_plus_one_plain(x)}
+    times = turns_ms(runs, COPY_TURNS)
+    copy_ms, plain_ms = (float(np.median(times[k])) for k in runs)
+    # COPY_BATCH calls back to back a sample: the device, not the host's
+    # launch path, sets the time
+    batched = turns_ms({k: (lambda f=f: [f() for _ in range(COPY_BATCH)])
+                        for k, f in runs.items()}, COPY_TURNS)
+    b2b_ms, b2b_plain_ms = (float(np.median(batched[k])) / COPY_BATCH
+                            for k in runs)
     rate = 2 * 4 * x.numel() / (copy_ms * 1e-3)
+    plain_rate = 2 * 4 * x.numel() / (plain_ms * 1e-3)
+    geo = roofline_kernel.library_copy_geometry(x.numel())
+    usage = ptxas_usage(build.build("roofline")[1], "copy_kernel")
     del x
     y = torch.rand(1 << 25, generator=gen, device=device)
     got, ref = (roofline_kernel.fma_chain(y),
@@ -1288,21 +1385,41 @@ def roofline_phase(device):
           f"roofline fma: {rel:.3e} from the float64 plain version")
     fma_ms = cuda_ms(lambda: roofline_kernel.fma_chain(y), reps=5)
     flops = 2 * roofline_kernel.DEPTH * y.numel() / (fma_ms * 1e-3)
-    log(f"roofline copy 1 GB (x + 1): {copy_ms:.4f} ms = "
-        f"{rate / 1e12:.4f} TB/s against the {PEAK_BYTES_PER_S / 1e12:.2f} "
-        f"TB/s bound() assumes ({rate / PEAK_BYTES_PER_S:.3f}); plain "
-        f"{plain_ms:.4f} ms")
-    log(f"roofline fma 512-deep over 128 MB: {fma_ms:.4f} ms = "
+    ratio = copy_ms / plain_ms
+    log(f"roofline copy 1 GiB (x + 1), in turns, median of {COPY_TURNS} "
+        f"each: kernel {copy_ms:.4f} ms = {rate / 1e12:.4f} TB/s "
+        f"({rate / PEAK_BYTES_PER_S:.3f} of the "
+        f"{PEAK_BYTES_PER_S / 1e12:.2f} TB/s bound() assumes; runs "
+        f"{min(times['kernel']):.4f}-{max(times['kernel']):.4f}), x + 1 "
+        f"{plain_ms:.4f} ms = {plain_rate / 1e12:.4f} TB/s "
+        f"({plain_rate / PEAK_BYTES_PER_S:.3f}; runs "
+        f"{min(times['x + 1']):.4f}-{max(times['x + 1']):.4f}); kernel / "
+        f"x + 1 = {ratio:.4f}; {COPY_BATCH} calls back to back: kernel "
+        f"{b2b_ms:.4f} ms a call ({copy_bound[0] / b2b_ms:.3f}"
+        f" of its bound), x + 1 {b2b_plain_ms:.4f} ms, kernel / x + 1 = "
+        f"{b2b_ms / b2b_plain_ms:.4f}")
+    if ratio > 1.0:
+        log(f"roofline copy: slower than x + 1 by {ratio - 1:.2%} (printed, "
+            "not failed)")
+    log(f"roofline copy geometry: {geo.blocks} blocks of "
+        f"{roofline_kernel.COPY_THREADS} threads on {sms} SMs, "
+        f"{geo.stages} stages of {geo.chunk_bytes} B, {geo.smem_bytes} B "
+        f"dynamic shared memory a block; ptxas copy_kernel: {usage}")
+    log(f"roofline fma 512-deep over 128 MiB: {fma_ms:.4f} ms = "
         f"{flops / 1e12:.3f} TFLOP/s float32 against {PEAK_F32_PER_S / 1e12:.0f}"
         f" ({flops / PEAK_F32_PER_S:.3f}); max rel err vs float64 plain "
         f"{rel:.3e}")
     b_ms, b_by = copy_bound
     return dict(launches=read_launches()["roofline"], max_abs_err=copy_err,
                 ms=copy_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=plain_ms, fma_ms=fma_ms, fma_max_rel_err=rel,
+                library_ms=plain_ms, ratio_to_library=ratio,
+                timed_in_turns=COPY_TURNS, back_to_back_ms=b2b_ms,
+                back_to_back_library_ms=b2b_plain_ms,
+                geometry=geo._asdict(),
+                registers=usage, fma_ms=fma_ms, fma_max_rel_err=rel,
                 path="chip_smoke.roofline_phase (measures the card; no "
                      "path of the system runs it)",
-                shape="copy 1 GB float32; FMA chain 512-deep over 128 MB")
+                shape="copy 1 GiB float32; FMA chain 512-deep over 128 MiB")
 
 
 def write_cli_csvs():

@@ -12,11 +12,16 @@ Both launch the kernel for a contiguous float32 CUDA tensor whose size is a
 multiple of 4 and that starts on a 16-byte boundary, and raise on anything
 else; on a CPU tensor they run their plain versions. ``launches`` counts the
 kernel launches.
+
+The copy is a persistent ring of TMA bulk copies (csrc/roofline.cu):
+``copy_geometry`` restates its launch, and ``library_copy_geometry`` asks
+the built library for the launch on the current card.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -32,6 +37,45 @@ launches = 0
 _P, _L = ctypes.c_void_p, ctypes.c_longlong
 _SIGNATURES = {"roofline_fma": [_P, _P, _L, _P],
                "roofline_copy": [_P, _P, _L, _P]}
+
+# csrc/roofline.cu's copy: threads a block, bytes a chunk (a stage of the
+# ring), stages, blocks an SM, and the shared memory a block may take
+COPY_THREADS = 256
+CHUNK_BYTES = 32768
+STAGES = 6
+BLOCKS_PER_SM = 1
+SMEM_LIMIT = 232448
+
+
+class CopyGeometry(NamedTuple):
+    blocks: int
+    stages: int
+    chunk_bytes: int
+    smem_bytes: int
+
+
+def copy_geometry(n: int, sms: int) -> CopyGeometry:
+    """The copy's launch for n floats on a card of ``sms`` SMs:
+    BLOCKS_PER_SM blocks an SM, no more than there are chunks, each with a
+    ring of STAGES chunks in dynamic shared memory."""
+    if n <= 0 or n % 4:
+        raise ValueError("n must be a positive multiple of 4")
+    chunks = -(-4 * n // CHUNK_BYTES)
+    return CopyGeometry(min(chunks, BLOCKS_PER_SM * sms), STAGES,
+                        CHUNK_BYTES, STAGES * CHUNK_BYTES)
+
+
+def library_copy_geometry(n: int) -> CopyGeometry:
+    """The built library's launch of the copy for n floats on the current
+    card (roofline_copy_geometry)."""
+    lib = _build.load("roofline", _SIGNATURES)
+    fn = lib.roofline_copy_geometry
+    fn.argtypes = [_L, _P]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 4)()
+    _build.check(lib, "roofline", "roofline_copy_geometry",
+                 fn(n, ctypes.addressof(out)))
+    return CopyGeometry(*out)
 
 
 def fma_chain_plain(x):

@@ -48,6 +48,23 @@ against it in turns on chip_smoke.py's two pipeline inputs and on the
 larger one widened to B = 1,000 (step records in the device scratch).
 Variants are built with -I on the port's csrc/, so they may include its
 headers.
+--roofline-csrc: commit d671226's sources, whose roofline.cu holds the copy
+(x + 1) before the persistent TMA ring (65,536 blocks of 256 threads for
+1 GiB, four float4 a thread):
+    mkdir -p build/prev
+    git archive d671226 epidemicmodeling_torch/csrc | tar -x -C build/prev
+    python3 scripts/kernel_ab.py \\
+        --roofline-csrc build/prev/epidemicmodeling_torch/csrc
+It builds that roofline.cu, the port's, the port's with the edits in
+ROOFLINE_VARIANTS (other blocks an SM, chunk sizes and stage counts of the
+same ring) and scripts/variants/roofline_stream.cu (a persistent
+grid-stride copy through registers with streaming hints), and times each,
+and PyTorch's x + 1 (torch.add into a preallocated output, as the C entries
+write), in turns at 2**26, 2**28 and 2**30 float32 elements: a timed
+sample is ROOFLINE_BATCH calls back to back between two CUDA events, so
+that the device, not the host, sets the time; rounds alternate the order.
+Every version's output, written into a NaN-filled buffer before and again
+after the timed calls, must equal x + 1 bit for bit.
 
 For every source set it checks the parameter count of every function it
 calls (OLD_SIGNATURES, BASE_SIGNATURES) and stops before loading anything
@@ -78,7 +95,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke as cs  # noqa: E402
 from epidemicmodeling_torch.ops.cuda import (build,  # noqa: E402
                                              ekf3_kernel, ekf6_kernel,
-                                             pairwise_kernel, stencil_kernel)
+                                             pairwise_kernel, roofline_kernel,
+                                             stencil_kernel)
 from epidemicmodeling_torch.spatial import PopulationSimConfig  # noqa: E402
 from epidemicmodeling_torch.spatial.agents import \
     default_environment  # noqa: E402
@@ -99,6 +117,85 @@ OLD_SIGNATURES = {
     "pairwise": {"pairwise_forces": [_P, _P, _P, _I, _I, _F, _F, _F, _F,
                                      _P]}}
 BASE_SIGNATURES = {"ekf3": EKF3_SIG, "stencil": STENCIL_SIG}
+# commit d671226's roofline.cu
+PREV_SIGNATURES = {"roofline": roofline_kernel._SIGNATURES}
+COPY_SIG = {"roofline_copy": roofline_kernel._SIGNATURES["roofline_copy"]}
+ROOFLINE_SIZES = (1 << 26, 1 << 28, 1 << 30)
+ROOFLINE_BATCH = 5
+ROOFLINE_ROUNDS = 10
+# the port's copy ring with other constants, as edits of its roofline.cu
+_BLOCKS = ("constexpr int BLOCKS_PER_SM = 1;", "constexpr int BLOCKS_PER_SM = 2;")
+_CHUNK16 = ("constexpr int CHUNK = 32768;", "constexpr int CHUNK = 16384;")
+# other designs of the copy, in scripts/variants/
+ROOFLINE_VARIANT_FILES = {"tma claimed chunks": "roofline_tma_claim.cu",
+                          "stream": "roofline_stream.cu"}
+_STAGES = "constexpr int STAGES = 6;"
+_POLICY = ("      uint64_t policy;\n"
+           "      asm volatile(\"createpolicy.fractional.L2::evict_first.b64 "
+           "%0, 1.0;\\n\" : \"=l\"(policy));\n")
+ROOFLINE_VARIANTS = {
+    "tma 2 blocks an SM, 3 x 32 KiB": [
+        _BLOCKS, (_STAGES, "constexpr int STAGES = 3;")],
+    "tma 1 block an SM, 12 x 16 KiB": [
+        _CHUNK16, (_STAGES, "constexpr int STAGES = 12;")],
+    "tma 2 blocks an SM, 6 x 16 KiB": [_BLOCKS, _CHUNK16],
+    "tma 1 block an SM, 4 x 32 KiB": [(_STAGES, "constexpr int STAGES = 4;")],
+    "tma 1 block an SM, 3 x 64 KiB": [
+        ("constexpr int CHUNK = 32768;", "constexpr int CHUNK = 65536;"),
+        (_STAGES, "constexpr int STAGES = 3;")],
+    "tma 4 blocks an SM, 3 x 16 KiB": [
+        ("constexpr int BLOCKS_PER_SM = 1;", "constexpr int BLOCKS_PER_SM = 4;"),
+        _CHUNK16, (_STAGES, "constexpr int STAGES = 3;")],
+    # loads and stores marked L2 evict-first (the data is touched once)
+    "tma evict-first": [
+        ('  asm volatile(\n'
+         '      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::'
+         'bytes "\n'
+         '      "[%0], [%1], %2, [%3];\\n"\n'
+         '      :: "r"(stage), "l"(src), "r"(bytes), "r"(bar) : "memory");\n',
+         _POLICY[2:].replace("\n      ", "\n    ")
+         + '  asm volatile(\n'
+         '      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::'
+         'bytes.L2::cache_hint "\n'
+         '      "[%0], [%1], %2, [%3], %4;\\n"\n'
+         '      :: "r"(stage), "l"(src), "r"(bytes), "r"(bar), "l"(policy)\n'
+         '      : "memory");\n'),
+        ('      asm volatile("cp.async.bulk.global.shared::cta.bulk_group "\n'
+         '                   "[%0], [%1], %2;\\n"\n'
+         '                   :: "l"(out + off), "r"(ring0 + s * CHUNK), '
+         '"r"(nb)\n',
+         _POLICY
+         + '      asm volatile("cp.async.bulk.global.shared::cta.bulk_group'
+         '.L2::cache_hint "\n'
+         '                   "[%0], [%1], %2, %3;\\n"\n'
+         '                   :: "l"(out + off), "r"(ring0 + s * CHUNK), '
+         '"r"(nb), "l"(policy)\n')],
+    # each block walks a contiguous run of chunks, not b, b + blocks, ...
+    "tma contiguous chunks a block": [
+        ("  // this block's chunks k = 0 .. count - 1 (gridDim.x <= chunks)\n"
+         "  const long long count = (chunks - blockIdx.x + gridDim.x - 1) / "
+         "gridDim.x;\n",
+         "  const long long per = (chunks + gridDim.x - 1) / gridDim.x;\n"
+         "  const long long first = blockIdx.x * per;\n"
+         "  const long long count = chunks - first < per ? chunks - first : "
+         "per;\n"),
+        ("    return (blockIdx.x + k * gridDim.x) * (long long)CHUNK;\n",
+         "    return (first + k) * (long long)CHUNK;\n")],
+    # the ring's bulk loads, but each thread stores its x + 1 from registers
+    # (STG.128, streaming): no bulk store, no fence, no wait before a refill
+    "tma loads, register stores": [
+        ("      v[i] = t;\n",
+         "      __stcs(reinterpret_cast<float4*>(out + off) + i, t);\n"),
+        ('      asm volatile("cp.async.bulk.global.shared::cta.bulk_group "\n'
+         '                   "[%0], [%1], %2;\\n"\n'
+         '                   :: "l"(out + off), "r"(ring0 + s * CHUNK), '
+         '"r"(nb)\n'
+         '                   : "memory");\n'
+         '      asm volatile("cp.async.bulk.commit_group;\\n" ::: "memory");\n',
+         ""),
+        ('        asm volatile("cp.async.bulk.wait_group.read 1;\\n" ::: '
+         '"memory");\n', "")],
+}
 ORDER = ("old", "new", "new", "old")
 STENCIL_REPS = 20
 # stencil.cu designs tried and not kept, as edits of the port's source: each
@@ -572,6 +669,96 @@ def stencil_variant_ab(name: str, device):
     return out
 
 
+def edited_source(name: str, tag: str, edits) -> Path:
+    """The port's csrc/<name>.cu with ``edits`` ((old, new) pairs, each old
+    occurring once), written under build/ with ``tag`` in its name."""
+    text = (build.CSRC / f"{name}.cu").read_text()
+    for old, new in edits:
+        if text.count(old) != 1:
+            raise SystemExit(f"{name}.cu: {old!r} does not occur once")
+        text = text.replace(old, new)
+    OUT.mkdir(parents=True, exist_ok=True)
+    slug = re.sub(r"[^0-9a-z]+", "_", tag.lower()).strip("_")
+    path = OUT / f"{name}_{slug}.cu"
+    path.write_text(text)
+    return path
+
+
+def roofline_ab(prev_csrc: Path, device):
+    """The copy (x + 1): commit d671226's design, the port's TMA ring and
+    its ROOFLINE_VARIANTS, the streaming variant and torch.add, each held
+    bit for bit against x + 1 and timed in turns at ROOFLINE_SIZES."""
+    libs = {"old (d671226)": build_old(prev_csrc, PREV_SIGNATURES,
+                                       "d671226")["roofline"],
+            "tma (port)": build.load("roofline", roofline_kernel._SIGNATURES)}
+    sources = {name: edited_source("roofline", name, edits)
+               for name, edits in ROOFLINE_VARIANTS.items()}
+    for name, file in ROOFLINE_VARIANT_FILES.items():
+        sources[name] = Path(__file__).resolve().parent / "variants" / file
+    with ThreadPoolExecutor(len(sources)) as pool:
+        libs.update(zip(sources, pool.map(
+            lambda src: build_variant(src, COPY_SIG), sources.values())))
+    geo = {}
+    for name, lib in libs.items():
+        lib.roofline_error_string.argtypes = [ctypes.c_int]
+        lib.roofline_error_string.restype = ctypes.c_char_p
+        if hasattr(lib, "roofline_copy_geometry"):
+            fn = lib.roofline_copy_geometry
+            fn.argtypes, fn.restype = [ctypes.c_longlong, _P], ctypes.c_int
+            out = (ctypes.c_int * 4)()
+            assert fn(1 << 28, ctypes.addressof(out)) == 0
+            geo[name] = dict(zip(("blocks", "stages", "chunk_bytes",
+                                  "smem_bytes"), out))
+            print(f"roofline {name}: geometry at 2**28 {geo[name]}",
+                  flush=True)
+    res = {"geometry_at_2_28": geo}
+    for n in ROOFLINE_SIZES:
+        x = torch.rand(n, device=device)
+        ref = x + 1
+        outs = {v: torch.full_like(x, float("nan")) for v in libs}
+        outs["x + 1"] = torch.full_like(x, float("nan"))
+        runs = {v: (lambda v=v: cs.copy_into(libs[v], x, outs[v]))
+                for v in libs}
+        runs["x + 1"] = lambda: torch.add(x, 1.0, out=outs["x + 1"])
+
+        def hold():
+            """Each version once more into its NaN-filled output."""
+            for v, run in runs.items():
+                outs[v].fill_(float("nan"))
+                run()
+            torch.cuda.synchronize()
+            return {v: torch.equal(o, ref) for v, o in outs.items()}
+
+        equal = hold()
+        batched = {v: (lambda run=run: [run() for _ in range(ROOFLINE_BATCH)])
+                   for v, run in runs.items()}
+        times = cs.turns_ms(batched, ROOFLINE_ROUNDS)
+        # again after the timed calls: a launch that left work undone would
+        # show here
+        equal = {v: e and a for (v, e), a in zip(equal.items(),
+                                                 hold().values())}
+        del ref
+        ms = {v: float(np.median(ts)) / ROOFLINE_BATCH
+              for v, ts in times.items()}
+        bound_ms = cs.bound(8 * n, n)[0]
+        res[f"n=2**{n.bit_length() - 1}"] = {
+            v: dict(ms=ms[v], tb_s=8 * n / (ms[v] * 1e-3) / 1e12,
+                    bound_share=bound_ms / ms[v], equal_bit_for_bit=equal[v],
+                    runs_ms=[t / ROOFLINE_BATCH for t in times[v]])
+            for v in runs}
+        for v in runs:
+            print(f"roofline copy n=2**{n.bit_length() - 1} [{v}]: "
+                  f"{ms[v]:.4f} ms a call, {8 * n / (ms[v] * 1e-3) / 1e12:.4f}"
+                  f" TB/s, {bound_ms / ms[v]:.3f} of the {bound_ms:.4f} ms "
+                  f"bound; / x + 1 {ms[v] / ms['x + 1']:.4f}; equal bit for "
+                  f"bit {equal[v]}", flush=True)
+        del x, outs, runs, batched
+        if not all(equal.values()):
+            raise SystemExit(f"roofline copy n={n}: a version differs from "
+                             f"x + 1 {equal}")
+    return res
+
+
 def sass_counts(so: Path) -> dict:
     """SASS instruction count of each kernel in a library (cuobjdump)."""
     cuobjdump = Path(build.nvcc_path()).with_name("cuobjdump")
@@ -655,11 +842,14 @@ def main():
     ap.add_argument("--ekf3-variant", type=Path, action="append",
                     default=[], help="an ekf3.cu variant to time against "
                     "the port's (repeatable)")
+    ap.add_argument("--roofline-csrc", type=Path,
+                    help="commit d671226's epidemicmodeling_torch/csrc")
     args = ap.parse_args()
     if (args.old_csrc is None and args.base_csrc is None
-            and not args.stencil_variant and not args.ekf3_variant):
-        ap.error("give --old-csrc, --base-csrc, --stencil-variant or "
-                 "--ekf3-variant")
+            and not args.stencil_variant and not args.ekf3_variant
+            and args.roofline_csrc is None):
+        ap.error("give --old-csrc, --base-csrc, --stencil-variant, "
+                 "--ekf3-variant or --roofline-csrc")
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: this timing needs one card")
     device = torch.device("cuda", 0)
@@ -676,6 +866,8 @@ def main():
         res[f"ekf3 variant {variant.name}"] = ekf3_variant_ab(variant, device)
     for name in args.stencil_variant:
         res[f"stencil variant {name}"] = stencil_variant_ab(name, device)
+    if args.roofline_csrc is not None:
+        res["roofline copy"] = roofline_ab(args.roofline_csrc, device)
     if old is not None:
         res["ekf6"] = ekf6_ab(old, device)
         res["pairwise"] = pairwise_ab(old, device)

@@ -54,7 +54,8 @@ from epidemicmodeling_torch.spatial.walkers import walking_sources_sim
 
 from chip_smoke import (EKF3_BOUNDS, FILTER_TYPES, LM_COST_RTOL, LM_RTOL,
                         PAIRWISE_ROW_BOUND,
-                        SMALL_REF_BOUNDS, law_rows, lm_costs,
+                        SMALL_REF_BOUNDS, copy_check_sizes, copy_into,
+                        law_rows, lm_costs,
                         per_capita_case, pinv_ranks_agree, row_err,
                         rt_series, shooting_certificates, small_lstm_parity,
                         sweep_errs)
@@ -473,6 +474,21 @@ def test_ekf3_geometry_matches_the_library(cuda):
 
 
 def test_roofline_kernels_match_plain(cuda):
+    """The copy (a persistent ring of TMA bulk copies): the library's launch
+    geometry equals roofline_kernel.copy_geometry, and roofline_copy through
+    its C entry writes x + 1 bit for bit into a NaN-filled output (a skipped
+    chunk or tail would leave NaN) at the schedule's ragged sizes and 1 GiB;
+    then both wrappers against their plain versions."""
+    lib = build.load("roofline", roofline_kernel._SIGNATURES)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for n in copy_check_sizes(sms):
+        assert (roofline_kernel.library_copy_geometry(n)
+                == roofline_kernel.copy_geometry(n, sms)), n
+        x = torch.rand(n, device=cuda)
+        out = torch.full_like(x, float("nan"))
+        copy_into(lib, x, out)
+        torch.cuda.synchronize()
+        assert torch.equal(out, x + 1), n
     x = torch.rand(1 << 20, device=cuda)
     before = roofline_kernel.launches
     assert torch.equal(roofline_kernel.copy_plus_one(x), x + 1)
