@@ -129,7 +129,20 @@ CUDA toolkit (nvcc). In order, it:
    cuda:0 through Gloo, for "lanes" and "pallas" (J0 and a2 within 1e-9 of
    one process); parallel_kalman at T = 4096, m = 3 on the card against
    the CPU in float64 (PKF_TOL). Each wall is printed beside the single
-   slot's with the card's name and power limit.
+   slot's with the card's name and power limit;
+16. drives the native deployment artefact (slice 8, deploy/): the Pareto
+   sweep of the 6-state optimal-NPI EKF/EKS for one region (the first
+   lane of the per-capita case with active control, 2,000 epsilons
+   log-spaced over [1e-8, 1e-2], T = 532, P = 12, float64, adaptive R)
+   through newcase_ekf_pareto_sweep_native on the card (one launch of the
+   hand-written kernel, csrc/newcase_ekf.cu), held against the CPU build
+   (deploy/src/newcase_ekf.cpp: prescriptions equal, J0 and J1 at rtol
+   1e-12, bit for bit expected) and against the plain version on the card
+   (prescriptions equal, J0 and J1 at rtol 1e-9); the single-epsilon entry
+   against the CPU build at beta_ekf 1 and 0.9; then the kernel's time
+   (CUDA events around the device-pointer entry), the host-pointer entry's
+   wall with its copies, the threaded CPU build's and the plain version's
+   walls beside the float64 bound.
 
 Every failed check raises, so the exit code is non-zero. Only when all
 phases pass does it print the kernel JSON line, the card's name and power
@@ -138,8 +151,10 @@ gives ekf6's time on the per-capita input with active control,
 pairwise's at N = 100,000, ekf3's at the backtest's (T = 440, B = 14,100)
 and each EKS kernel's launches on the CLI's and the backtest's warm runs,
 ekf3's on train_npi_prescriptor's and ekf6's on prescribe_from_checkpoint's,
-and every kernel's launches on the 5 x 1 mesh run (mesh_launches), all
-measured in the same run; roofline's entry is its copy kernel, launched by
+and every EKS, stencil, pairwise and roofline kernel's launches on the
+5 x 1 mesh run (mesh_launches), all measured in the same run; newcase_ekf's
+entry (not a TPU kernel) adds the CPU build's and the host entry's walls;
+roofline's entry is its copy kernel, launched by
 phase 9 alone (no path of the system runs it).
 """
 
@@ -149,6 +164,7 @@ import contextlib
 import dataclasses
 import importlib.util
 import json
+import os
 import shutil
 import subprocess
 import time
@@ -182,6 +198,10 @@ from epidemicmodeling_torch.data import (NPI_MAXES_DEFAULT,
 from epidemicmodeling_torch.data.csvio import (parse_floats,
                                                read_csv_columns,
                                                write_csv_columns)
+from epidemicmodeling_torch.deploy import (newcase_ekf_optimal_npi_native,
+                                           newcase_ekf_pareto_sweep_native,
+                                           pareto_sweep_plain)
+from epidemicmodeling_torch.deploy import native as deploy_native
 from epidemicmodeling_torch.ml import (LSTMForecaster, arx_fit_predict,
                                        lagged_features, long_weekend_feature,
                                        ridge_regression, rollout_forecast,
@@ -230,8 +250,8 @@ from epidemicmodeling_torch.spatial import (PopulationSimConfig,
 from epidemicmodeling_torch.spatial.agents import default_environment
 from epidemicmodeling_torch.spatial.walkers import walking_sources_sim
 from epidemicmodeling_torch.utils.dates import date_range_days
-from tests._torch_helpers import (make_inputs, masked_err, packed_args,
-                                  scaled_err)
+from tests._torch_helpers import (deploy_history, make_inputs, masked_err,
+                                  packed_args, scaled_err)
 
 R_REGIONS, T_HIST, HORIZON = 235, 440, 92
 # slots of the one card in the mesh phase; parallel_kalman's card-vs-CPU
@@ -284,10 +304,18 @@ KERNELS = {
         plain=roofline_kernel.copy_plus_one_plain,
         source="epidemicmodeling_torch/csrc/roofline.cu",
         replaces="bench.py:119"),
+    # not a TPU kernel: the card build of the JAX package's CPU library
+    "newcase_ekf": dict(
+        run=deploy_native.newcase_ekf_sweep, plain=pareto_sweep_plain,
+        source="epidemicmodeling_torch/csrc/newcase_ekf.cu",
+        replaces="epidemicmodeling_tpu/deploy/src/newcase_ekf.cpp:352",
+        note="not a TPU kernel: the JAX package's native CPU library "
+             "(newcase_ekf_pareto_sweep), built for the card"),
 }
 LAUNCH_COUNTERS = {"ekf3": ekf3_kernel, "ekf6": ekf6_kernel,
                    "stencil": stencil_kernel, "pairwise": pairwise_kernel,
-                   "roofline": roofline_kernel}
+                   "roofline": roofline_kernel,
+                   "newcase_ekf": deploy_native}
 
 # The card's published peaks (H100 SXM, 700 W):
 # device memory and float32 outside the tensor cores.
@@ -459,6 +487,18 @@ SVR_N, SVR_STEPS = 400, 2000
 ARX_ORDER = 14
 ARX_FORECAST_TOL = dict(rtol=1e-8, atol=1e-12)
 ARX_COST_RTOL = 1e-11
+# slice 8: the native deployment artefact's sweep for one region at the
+# paper's 2,000 epsilons, log-spaced over per_capita_case(True)'s active
+# range, with the reference's deployed adaptive R (beta_ekf = 0.9); the
+# card's sweep against the CPU build (bit for bit expected: both compile
+# csrc/newcase_ekf.cuh without fused multiply-adds) and against the plain
+# version (the generic core: another operation order); the single-epsilon
+# entry at both beta_ekf
+DEPLOY_EPS, DEPLOY_EPS_RANGE = 2000, (-8, -2)
+DEPLOY_BETA = 0.9
+DEPLOY_CPU_RTOL, DEPLOY_PLAIN_RTOL = 1e-12, 1e-9
+# the card's float64 peak outside the tensor cores (H100 SXM data sheet)
+PEAK_F64_PER_S = 34e12
 
 
 def log(msg: str) -> None:
@@ -3223,14 +3263,292 @@ def mesh_phase(device, bt, bf, actual, cli_files):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# slice 8: the native deployment artefact (deploy/): the 6-state optimal-NPI
+# EKF/EKS's Pareto sweep for one region, card build against CPU build
+
+
+def deploy_case() -> dict:
+    """The sweep's arguments for one region, float64: the first lane of
+    per_capita_case(True) (its parameters, initial states, covariances,
+    observations and inputs, T = T_HIST + HORIZON, P = 12), its historic
+    (s, i, alpha) by the noise-free roll of tests/test_deploy.py:114-122
+    (tests._torch_helpers.deploy_history) with that lane's dt, rates and
+    historic inputs, and DEPLOY_EPS epsilons log-spaced over
+    DEPLOY_EPS_RANGE in place of its one."""
+    d = per_capita_case(True)
+    lane = lambda v: np.asarray(v[..., 0], np.float64)
+    p = {k: lane(v) for k, v in d["params"].items()}
+    u = lane(d["u"])
+    return dict(u=u, x=lane(d["x"]), T_hist=T_HIST, params=p,
+                eps_values=np.logspace(*DEPLOY_EPS_RANGE, DEPLOY_EPS),
+                s_init=lane(d["s_init"]), Ps_init=lane(d["Ps_init"]),
+                s_final=lane(d["s_final"]), Ps_final=lane(d["Ps_final"]),
+                Q=lane(d["Q"]), R_v=lane(d["Rv"]),
+                sia_hist=deploy_history(u, p, lane(d["s_init"]), T_HIST),
+                beta_ekf=DEPLOY_BETA)
+
+
+def newcase_ops(case: dict) -> float:
+    """float64 operations (add, sub, mul, div) that the sweep needs on these
+    inputs, each counted once where the function can share it: products of
+    state fields, terms that are constant over a lane (1 - epsilon, dt gamma,
+    epsilon w, the band's slope) and sums over rows that are the same in
+    every lane are not counted again. Per lane:
+
+    - T - 1 predictions (the last step's feeds nothing): the state update
+      (29 + 3 P), the Jacobian's 21 structural nonzeros at the same point
+      (13; the smoother's step t uses this same matrix) and A P+ A^T + Q
+      over those nonzeros (2 x 216 + 36);
+    - on a finite x: C's 3 nonzeros and the predicted observation (4), then
+      P- C^T (30), S (7), the innovation (1), K (6), P- - K (C P-) over
+      gamma (30 + 108), s+ (12); with beta_ekf != 1 the monitor as running
+      sums over its length (7 a finite x, 5 another step) and R (4), with
+      beta_ekf = 1 nothing, as nothing reads it;
+    - T - 1 smoother steps: P+ A^T (216), the gain by an LU factorization
+      with 6 right-hand sides (521), the smoothed state (78), P- - Ps,
+      J (.) J^T, P+ - that (36 + 2 x 396 + 36), gamma s5 (1);
+    - the bang-bang law, 2 for each optimized cell of rows 0..T-2, in each
+      pass (the last row's inputs are 0);
+    - the horizon's re-simulation (15 + 3 P a step) and the two divisions.
+
+    Once for all lanes: the history's new cases (3 a day) and w * u over the
+    cells that every lane shares (2 each). The band term of A[2][5] (1 add
+    for each optimized cell whose phi lies in the band) is left out: it
+    depends on the states. newcase_ops_as_written counts the kernel's own
+    arithmetic beside it."""
+    T, P = case["u"].shape
+    T_hist, E = case["T_hist"], len(case["eps_values"])
+    adaptive = case["beta_ekf"] != 1.0
+    opt = int(np.isnan(case["u"][:-1]).sum())   # optimized cells, rows < T-1
+    valid = int((~np.isnan(case["x"])).sum())
+    sparse = 6 * (2 * 21 - 6)         # 6 x 6 times A^T (A's 21 nonzeros)
+    dense = 6 * 6 * 11                # 6 x 6 times a full 6 x 6
+    predict = 29 + 3 * P + 13 + 2 * sparse + 36
+    update = 4 + 30 + 7 + 1 + 6 + 30 + 108 + 12
+    monitor = (valid * (7 + 4) + (T - valid) * 5) if adaptive else 0
+    fwd = (T - 1) * predict + valid * update + monitor + 2 * opt
+    lu = sum(m + 2 * m * m for m in range(6)) + 6 * (30 + 36)
+    bwd = (T - 1) * (sparse + lu + 78 + 36 + 2 * dense + 36 + 1) + 2 * opt
+    score = (T - T_hist) * (15 + 3 * P) + 2 * opt + 2
+    shared = 3 * T_hist + 2 * (T * P - opt)
+    return float(E * (fwd + bwd + score) + shared)
+
+
+def newcase_ops_as_written(case: dict) -> float:
+    """float64 operations (add, sub, mul, div) of the sweep on these inputs,
+    counted from csrc/newcase_ekf.cuh as written, every product of 6 x 6
+    matrices dense and every elimination row of mrdivide taken: per step a
+    forward (its update where x is finite, the monitor and the adaptive R)
+    and, but for the last step, a backward; the bang-bang law (4) and the
+    band test (2 divisions) per optimized input cell in each pass; then the
+    horizon's re-simulation and the costs. The band term itself (7 where
+    phi lies in the band) is left out: it depends on the states."""
+    T, P = case["u"].shape
+    T_hist, E = case["T_hist"], len(case["eps_values"])
+    L, adaptive = 21, case["beta_ekf"] != 1.0
+    nan_cells = int(np.isnan(case["u"]).sum())
+    valid = int((~np.isnan(case["x"])).sum())
+    product = 6 * 6 * 12             # a dense 6 x 6 product
+    state_update, jacobian = 36 + 3 * P, 49
+    # C and the predicted observation; A P+ A^T + Q
+    fwd_step = 5 + state_update + jacobian + 2 * product + 36
+    # P- C^T, S, the innovation, K, (I - K C) P- / gamma, s+, the monitor
+    update = 72 + 13 + 1 + 6 + 36 * 24 + 36 + 12 + (L + 1) + 3
+    adapt = (L + 1) + 4 if adaptive else 0
+    fwd = (T * fwd_step + valid * (update + adapt) + (T - valid) * (L + 2)
+           + nan_cells * (4 + 6))
+    # A^T, mrdivide (12 divisions and 5 eliminated rows a column), the
+    # smoothed state, P- - Ps, J Pd J^T, P+ - that, the smoothed inputs
+    mrdivide = 6 * (12 + 5 * 24)
+    bwd_step = (jacobian + product + mrdivide + 6 + 72 + 36 + 2 * product
+                + 36 + state_update)
+    bwd = (T - 1) * bwd_step + nan_cells * (4 + 6)
+    score = (T - T_hist) * (20 + 3 * P) + 3 * T_hist + 2 * T * P + 2
+    return float(E * (fwd + bwd + score))
+
+
+def newcase_bound(case: dict):
+    """(least time in ms, what sets it) of the sweep: each input read once,
+    each output (U_OPT_SMOOTH, J0, J1) written once, against its float64
+    operations over the card's float64 peak outside the tensor cores. The
+    kernel's own scratch (P-, P+, s-, s+ of every step, written once and
+    read once) is the design's traffic, not the function's: its time at
+    3.35 TB/s is returned beside, as the third value."""
+    T, P = case["u"].shape
+    E, T_hist = len(case["eps_values"]), case["T_hist"]
+    n_in = T * P + 3 * T + E + 3 * T_hist + 4 * P + 5 * 6 * 6
+    n_out = E * T * P + 2 * E
+    t_bytes = 8 * (n_in + n_out) / PEAK_BYTES_PER_S * 1e3
+    t_ops = newcase_ops(case) / PEAK_F64_PER_S * 1e3
+    scratch_ms = (8 * 2 * E * T * deploy_native.SCRATCH_PER_LANE_STEP
+                  / PEAK_BYTES_PER_S * 1e3)
+    if t_bytes >= t_ops:
+        return t_bytes, "bytes", scratch_ms
+    return t_ops, "operations", scratch_ms
+
+
+def max_rel(a, b) -> float:
+    """max |a - b| / |b|; equal entries count 0 (also where b is 0), an
+    entry that differs from a b of 0 inf."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    diff = np.abs(a - b)
+    rel = np.divide(diff, np.abs(b), out=np.where(diff == 0, 0.0, np.inf),
+                    where=b != 0)
+    return float(np.max(rel))
+
+
+def deploy_single_checks(case: dict, eps: float) -> dict:
+    """The single-epsilon entry (the kernel at E = 1, S_PLUS and S_SMOOTH
+    written too) on the card against the CPU build, at beta_ekf = 1 and
+    0.9: prescriptions equal, the states at DEPLOY_CPU_RTOL. Returns, per
+    beta_ekf, whether every output was equal bit for bit."""
+    args = {k: case[k] for k in ("u", "x", "params", "s_init", "Ps_init",
+                                 "s_final", "Ps_final", "Q", "R_v")}
+    args["params"] = dict(case["params"], epsilon=eps)
+    same = {}
+    for beta in (1.0, 0.9):
+        card = newcase_ekf_optimal_npi_native(**args, beta_ekf=beta)
+        cpu = newcase_ekf_optimal_npi_native(**args, beta_ekf=beta,
+                                             device="cpu")
+        check(np.array_equal(card["U_OPT_SMOOTH"], cpu["U_OPT_SMOOTH"]),
+              f"deploy single-epsilon beta={beta}: prescriptions differ")
+        for k in ("S_PLUS", "S_SMOOTH"):
+            check(np.allclose(card[k], cpu[k], rtol=DEPLOY_CPU_RTOL, atol=0)
+                  and np.isfinite(card[k]).all(),
+                  f"deploy single-epsilon beta={beta}: {k} differs "
+                  f"({max_rel(card[k], cpu[k]):.3e})")
+        same[beta] = all(np.array_equal(card[k], cpu[k]) for k in card)
+    return same
+
+
+def deploy_phase(device):
+    """Slice 8: the native deployment artefact's Pareto sweep for one region
+    (deploy_case: 2,000 epsilons x T = 532 x P = 12, float64, control
+    active) through newcase_ekf_pareto_sweep_native on the card, its
+    launches counted; held against the CPU build (prescriptions equal, J0
+    and J1 at DEPLOY_CPU_RTOL) and the plain version on the card
+    (prescriptions equal, J0 and J1 at DEPLOY_PLAIN_RTOL); the
+    single-epsilon entry at both beta_ekf; then the kernel's time (CUDA
+    events around the device-pointer entry, median of 5 warm calls), the
+    host-pointer entry's wall (copies included), the threaded CPU build's
+    and the plain version's walls, and the bound. Returns the kernels-line
+    entry."""
+    t0 = time.perf_counter()
+    card = card_line()
+    so = deploy_native.build_library()
+    _, report = build.build("newcase_ekf")
+    log(f"deploy: CPU build {Path(so).name} in "
+        f"{time.perf_counter() - t0:.1f}s; ptxas newcase_ekf_kernel: "
+        f"{ptxas_usage(report, 'newcase_ekf_kernel')}")
+    case = deploy_case()
+    reset_launches()
+    t1 = time.perf_counter()
+    got = newcase_ekf_pareto_sweep_native(**case)
+    wall = time.perf_counter() - t1
+    n = read_launches()
+    check(n["newcase_ekf"] == 1 and sum(n.values()) == 1,
+          f"deploy sweep: launches {n}, one newcase_ekf launch expected")
+    threads, cpu_walls = os.cpu_count(), []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        cpu = newcase_ekf_pareto_sweep_native(**case, n_threads=threads,
+                                              device="cpu")
+        cpu_walls.append(time.perf_counter() - t1)
+    cpu_wall = float(np.median(cpu_walls))
+    T_hist, u_max = case["T_hist"], case["params"]["u_max"]
+    fut = got["U_OPT_SMOOTH"][:, T_hist:-1]
+    share = float((fut == u_max).mean())
+    log(f"deploy sweep E={DEPLOY_EPS} T={case['u'].shape[0]} "
+        f"P={case['u'].shape[1]} eps 1e{DEPLOY_EPS_RANGE[0]}..1e"
+        f"{DEPLOY_EPS_RANGE[1]} beta_ekf={DEPLOY_BETA}: u_max share "
+        f"{share:.4f} (lanes from {(fut[0] == u_max).mean():.4f} to "
+        f"{(fut[-1] == u_max).mean():.4f}); card wall {wall:.3f}s (first "
+        f"call: the library's load included), CPU build {cpu_wall:.3f}s "
+        f"on {threads} threads (median of 3)")
+    check(0.0 < share < 1.0, "deploy sweep: degenerate (u_max share "
+                             f"{share})")
+    same_u = np.array_equal(got["U_OPT_SMOOTH"], cpu["U_OPT_SMOOTH"])
+    errs = {k: max_rel(got[k], cpu[k]) for k in ("J0", "J1")}
+    bits = all(np.array_equal(got[k], cpu[k]) for k in got)
+    log(f"deploy card vs CPU build: prescriptions equal={same_u}; J0 "
+        f"{errs['J0']:.3e} J1 {errs['J1']:.3e} relative; bit for bit="
+        f"{bits}")
+    check(same_u and all(np.isfinite(got[k]).all() for k in got)
+          and max(errs.values()) <= DEPLOY_CPU_RTOL,
+          f"deploy sweep: card and CPU build differ ({errs})")
+
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    plain = {k: v.cpu().numpy()
+             for k, v in pareto_sweep_plain(**case, device=device).items()}
+    plain_wall = time.perf_counter() - t1
+    same_plain = np.array_equal(got["U_OPT_SMOOTH"], plain["U_OPT_SMOOTH"])
+    perr = {k: max_rel(got[k], plain[k]) for k in ("J0", "J1")}
+    abs_err = max(float(np.max(np.abs(got[k] - plain[k]))) for k in got)
+    log(f"deploy card vs plain version on the card: prescriptions equal="
+        f"{same_plain}; J0 {perr['J0']:.3e} J1 {perr['J1']:.3e} relative; "
+        f"plain wall {plain_wall:.3f}s")
+    check(same_plain and max(perr.values()) <= DEPLOY_PLAIN_RTOL,
+          f"deploy sweep: card and plain version differ ({perr})")
+
+    single = deploy_single_checks(case,
+                                  float(case["eps_values"][DEPLOY_EPS // 2]))
+    log(f"deploy single-epsilon entry (card vs CPU build, bit for bit): "
+        f"{single}")
+
+    d = deploy_native.native_inputs(*(case[k] for k in (
+        "u", "x", "params", "s_init", "Ps_init", "s_final", "Ps_final", "Q",
+        "R_v")))
+    dc = deploy_native.to_device(d, device)
+    eps_t = torch.from_numpy(case["eps_values"]).to(device)
+    sia_t = torch.from_numpy(case["sia_hist"]).to(device)
+    ms = cuda_ms(lambda: deploy_native.newcase_ekf_sweep(
+        dc, eps_t, T_hist, sia_t, DEPLOY_BETA))
+    host = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        res = deploy_native.sweep_host_entry(
+            d, case["eps_values"], T_hist, case["sia_hist"], DEPLOY_BETA)
+        host.append(time.perf_counter() - t1)
+    check(all(np.array_equal(res[k], got[k]) for k in got),
+          "deploy host-pointer entry: outputs differ from the device entry")
+    b_ms, b_by, scratch_ms = newcase_bound(case)
+    log(f"kernel newcase_ekf [deploy sweep] E={DEPLOY_EPS} T="
+        f"{case['u'].shape[0]}: kernel_ms={ms:.3f} (median of 5 warm calls) "
+        f"host entry {1e3 * float(np.median(host)):.3f} ms (copies "
+        f"included, median of 3); CPU build {1e3 * cpu_wall:.1f} ms on "
+        f"{threads} threads; plain {1e3 * plain_wall:.1f} ms (one call); "
+        f"bound "
+        f"{b_ms:.4f} ms ({b_by}; {newcase_ops(case):.4e} float64 ops needed "
+        f"at {PEAK_F64_PER_S / 1e12:.0f} TFLOP/s; the kernel as written does "
+        f"{newcase_ops_as_written(case):.4e}); the scratch's own traffic "
+        f"{scratch_ms:.4f} ms at 3.35 TB/s")
+    log(f"slice 8 (deploy): {time.perf_counter() - t0:.1f}s [{card}]")
+    return dict(launches=n["newcase_ekf"], max_abs_err=abs_err, ms=ms,
+                plain_ms=1e3 * plain_wall, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, path="newcase_ekf_pareto_sweep_native "
+                "(one region, device=None)",
+                shape=f"E={DEPLOY_EPS} T={case['u'].shape[0]} "
+                      f"P={case['u'].shape[1]} float64",
+                cpu_build_ms=1e3 * cpu_wall, cpu_build_threads=threads,
+                host_entry_ms=1e3 * float(np.median(host)),
+                scratch_traffic_ms=scratch_ms, u_max_share=share,
+                ops=newcase_ops(case),
+                ops_as_written=newcase_ops_as_written(case),
+                cpu_build_max_rel_err=max(errs.values()),
+                bit_for_bit=bits)
+
+
 def kernel_entries(measured, xprize_launches, stencil_cases, sim_launches,
                    pairwise_cases, cli_launches, backtest, slice5_launches,
-                   roofline, mesh_launches):
+                   roofline, mesh_launches, deploy):
     """One entry per kernel for the JSON line: its launches on its path's
     warm run, its largest error against the plain version, and kernel,
     plain-version, bound and library times at its largest timed shape
     (both versions timed); mesh_launches, its launches on the warm 5 x 1
-    mesh XPRIZE run (MESH_SLOTS slots of the card, mesh_slots). Fails if a
+    mesh XPRIZE run (MESH_SLOTS slots of the card, mesh_slots; not for
+    newcase_ekf, which no mesh runs); deploy, slice 8's entry. Fails if a
     kernel never launched on its path."""
     kernels = []
     for name in ("ekf3", "ekf6"):
@@ -3287,10 +3605,13 @@ def kernel_entries(measured, xprize_launches, stencil_cases, sim_launches,
         n100k_bound_ms=pairwise_cases[-1]["big_bound_ms"],
         shape=f"N={timed['N']} O={timed['O']} float32"))
     kernels.append(roofline)
+    kernels.append(deploy)
     kernels = [dict(name=name, route="cuda",
                     **{f: v for f, v in KERNELS[name].items()
                        if f not in ("run", "plain")}, **k,
-                    mesh_launches=mesh_launches[name], mesh_slots=MESH_SLOTS)
+                    **({} if name == "newcase_ekf" else dict(
+                        mesh_launches=mesh_launches[name],
+                        mesh_slots=MESH_SLOTS)))
                for name, k in zip(KERNELS, kernels)]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} never launched on its path")
@@ -3300,11 +3621,14 @@ def kernel_entries(measured, xprize_launches, stencil_cases, sim_launches,
 
 
 def build_all():
-    """Build every kernel, one nvcc per source, all started together, and
-    print each one's ptxas register and spill lines."""
+    """Build every kernel, one nvcc per source, all started together with
+    the deployment artefact's CPU build (g++), and print each kernel's
+    ptxas register and spill lines."""
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(build.SOURCES)) as pool:
+    with ThreadPoolExecutor(len(build.SOURCES) + 1) as pool:
+        cpu_build = pool.submit(deploy_native.build_library)
         reports = list(pool.map(lambda n: build.build(n)[1], build.SOURCES))
+        cpu_build.result()
     for name, report in zip(build.SOURCES, reports):
         for line in report.splitlines():
             if any(w in line for w in ("Compiling entry", "registers",
@@ -3362,10 +3686,13 @@ def main():
     # the device mesh, the multi-process runs and parallel_kalman (slice 7)
     mesh_launches = mesh_phase(device, bt, bf, actual, cli_files)
 
+    # the native deployment artefact's card build (slice 8)
+    deploy = deploy_phase(device)
+
     kernels = kernel_entries(measured, xprize_launches, stencil_cases,
                              sim_launches, pairwise_cases, cli_launches,
                              backtest, slice5_launches, roofline,
-                             mesh_launches)
+                             mesh_launches, deploy)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

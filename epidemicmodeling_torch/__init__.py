@@ -4,7 +4,8 @@ The JAX package beside it is the reference: the tests run both on the same
 inputs and hold each module of the port against its counterpart. Module
 names mirror the JAX package's, so each counterpart is easy to find.
 
-Every module of the JAX package but its JAX plumbing is ported. The XPRIZE product runs from its own entry
+Every module of the JAX package but its JAX plumbing (utils/jax_cache.py,
+utils/platform.py) is ported. The XPRIZE product runs from its own entry
 points: the CLI (python -m epidemicmodeling_torch.pipelines.xprize_cli) and
 pipelines.train_predict_prescribe read the OxCGRT CSVs without pandas and
 run pipelines.run_pipeline, on the batch-last backends with the two EKF/EKS
@@ -27,10 +28,13 @@ ridge and ARX, epsilon-SVR, the LSTM forecasters) run as tensor ops and
 cuDNN, with no kernel of their own. The pipeline, the backtest and the CLI
 take a device mesh (parallel/: several slots, also across processes, split
 the EKS kernels' lanes), and ops.parallel_kalman and viz/ complete the
-port. All five kernels are written by hand in CUDA C++ for Hopper (csrc/,
-ops/cuda/). The entry points run on the CUDA card unless the
-caller passes CPU tensors or device="cpu"; for CPU tensors each kernel
-wrapper runs its plain PyTorch version.
+port. The native deployment artefact (deploy/: the 6-state optimal-NPI
+EKF/EKS and its epsilon sweep behind a C interface) is built for the card
+and, with device="cpu", for the CPU; utils.profiling times stages and
+captures profiler traces. All six kernels are written by hand in CUDA C++
+for Hopper (csrc/, ops/cuda/, deploy/). The entry points run on the CUDA
+card unless the caller passes CPU tensors or device="cpu"; for CPU tensors
+each kernel wrapper runs its plain PyTorch version.
 
 Subpackages
 -----------
@@ -56,9 +60,11 @@ data         pandas-free OxCGRT and JHU loaders and XPRIZE CSV writers,
              NumPy-only preprocessing, synthetic and realistic-artefact
              frames and CSVs
 utils        NaN-ordered clips, moving averages, dates, the entry points'
-             default device
+             default device, stage timing and profiler traces
 parallel     the device mesh, the multi-process runs and their dry run
 viz          the figures and the spatial animations (matplotlib)
+deploy       the native deployment artefact: the card and CPU builds of
+             the 6-state optimal-NPI EKF/EKS's C interface
 """
 
 __version__ = "0.1.0"

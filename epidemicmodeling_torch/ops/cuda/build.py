@@ -32,7 +32,12 @@ SOURCES = {
     "stencil": ("stencil.cu",),
     "pairwise": ("pairwise.cu",),
     "roofline": ("roofline.cu",),
+    "newcase_ekf": ("newcase_ekf.cu", "newcase_ekf.cuh"),
 }
+# flags of one kernel beside NVCC_FLAGS (keyed into its hash): the
+# deployment artefact's card build must equal its CPU build bit for bit, so
+# nvcc may not contract a * b + c into a fused multiply-add there
+EXTRA_FLAGS = {"newcase_ekf": ("--fmad=false",)}
 
 _lock = threading.Lock()
 _loaded: dict = {}
@@ -51,11 +56,37 @@ def nvcc_path() -> str:
     return found
 
 
+def flags(name: str) -> tuple:
+    """nvcc's flags for the kernel ``name``."""
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+
+
 def library_path(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(flags(name)).encode())
     for src in SOURCES[name]:
         h.update((CSRC / src).read_bytes())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+
+
+def compile_into(so: Path, command: list) -> str:
+    """Run the compiler ``command`` with ``-o`` a temporary file beside
+    ``so``, then move that into place (atomic: builds running at once agree).
+    Returns the compiler's stderr; raises with it when the compiler
+    fails."""
+    so.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=so.parent)
+    os.close(fd)
+    try:
+        proc = subprocess.run([*command, "-o", tmp], capture_output=True,
+                              text=True, check=False)
+        if proc.returncode != 0:
+            raise RuntimeError(f"{Path(command[0]).name} failed on "
+                               f"{Path(command[-1]).name}:\n{proc.stderr}")
+        os.replace(tmp, so)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return proc.stderr
 
 
 def build(name: str) -> tuple[Path, str]:
@@ -67,21 +98,8 @@ def build(name: str) -> tuple[Path, str]:
     if so.exists():
         report = so.with_suffix(".ptxas.txt")
         return so, report.read_text() if report.exists() else ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    unit = SOURCES[name][0]
-    try:
-        proc = subprocess.run(
-            [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC / unit)],
-            capture_output=True, text=True, check=False)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {unit}:\n{proc.stderr}")
-        os.replace(tmp, so)   # atomic: concurrent builders agree
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    report = proc.stderr
+    report = compile_into(so, [nvcc_path(), *flags(name),
+                               str(CSRC / SOURCES[name][0])])
     so.with_suffix(".ptxas.txt").write_text(report)
     return so, report
 

@@ -14,7 +14,8 @@ from .train_predict_prescribe import (run_pipeline, train_predict_prescribe,
                                       TrainPredictPrescribeResult)
 from .checkpoint import (trained_params_from_numpy, region_init_from_numpy,
                          save_trained_params, load_trained_params,
-                         save_trained_params_mat, load_trained_params_mat)
+                         save_trained_params_mat, load_trained_params_mat,
+                         save_trained_params_dcp, load_trained_params_dcp)
 from .forecast_quality import forecast_quality_assessment, BacktestResult
 from . import forecast_quality, prescribe, train
 from .prescribe import prescribe_from_checkpoint
@@ -40,6 +41,8 @@ __all__ = [
     "load_trained_params",
     "save_trained_params_mat",
     "load_trained_params_mat",
+    "save_trained_params_dcp",
+    "load_trained_params_dcp",
     "forecast_quality_assessment",
     "BacktestResult",
     "prescribe_from_checkpoint",

@@ -7,7 +7,10 @@ reg_coef_a, reg_coef_b2, reg_coef_a2} in a .mat file
 testScripts/testPrescribeXPRIZE01.m:62). The same parameters are stored
 as a portable .npz with a JSON names manifest, or in the reference's .mat
 schema (scipy.io); a file written by either package loads in the other.
-Orbax checkpoints are JAX-only and not ported.
+The JAX package's directory checkpoint (orbax) has its counterpart in
+``save_trained_params_dcp`` / ``load_trained_params_dcp``
+(torch.distributed.checkpoint, the same ``<dir>.names.json`` sidecar); the
+two on-disk formats differ, so each package reads only its own.
 
 ``trained_params_from_numpy`` / ``region_init_from_numpy`` turn the JAX
 package's TrainedRegionParams / RegionInit (or any mapping of their fields)
@@ -16,9 +19,13 @@ into the port's, so one stage of each package can run on the other's inputs.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
+import warnings
 
 import numpy as np
+import torch
 
 from ..utils.math import host_array
 from .core import RegionInit, TrainedRegionParams, to_tensor
@@ -72,6 +79,52 @@ def load_trained_params(path) -> TrainedRegionParams:
     return trained_params_from_numpy(dict(
         names=json.loads(str(z["names"])), population=z["population"],
         **{k: z[k] for k in _ARRAYS}))
+
+
+@contextlib.contextmanager
+def _one_process():
+    """Silence dcp's notice that, with no process group, it saves or loads
+    in one process: that is the intent here."""
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore",
+                                message="torch.distributed is disabled")
+        yield
+
+
+def save_trained_params_dcp(directory, trained: TrainedRegionParams) -> str:
+    """Directory checkpoint of the trained parameters through
+    torch.distributed.checkpoint (one process, no process group): the state
+    dict {population, a1, b1, a2, b2} of CPU tensors in their own dtype,
+    the names in the ``<dir>.names.json`` sidecar (the orbax pair's layout,
+    epidemicmodeling_tpu/pipelines/checkpoint.py:51). Returns the absolute
+    directory."""
+    import torch.distributed.checkpoint as dcp
+
+    directory = os.path.abspath(str(directory))
+    state = {k: torch.from_numpy(np.array(host_array(getattr(trained, k))))
+             for k in ("population",) + _ARRAYS}
+    with _one_process():
+        dcp.save(state, checkpoint_id=directory, no_dist=True)
+    with open(directory + ".names.json", "w") as f:
+        json.dump(list(trained.names), f)
+    return directory
+
+
+def load_trained_params_dcp(directory) -> TrainedRegionParams:
+    """Restore a save_trained_params_dcp directory: CPU tensors (population a
+    NumPy array), float64 as the other loaders give them."""
+    import torch.distributed.checkpoint as dcp
+
+    directory = os.path.abspath(str(directory))
+    meta = dcp.FileSystemReader(directory).read_metadata()
+    state = {k: torch.empty(tuple(m.size), dtype=m.properties.dtype)
+             for k, m in meta.state_dict_metadata.items()}
+    with _one_process():
+        dcp.load(state, checkpoint_id=directory, no_dist=True)
+    with open(directory + ".names.json") as f:
+        names = json.load(f)
+    return trained_params_from_numpy(dict(
+        names=names, **{k: v.numpy() for k, v in state.items()}))
 
 
 def load_trained_params_mat(path) -> TrainedRegionParams:

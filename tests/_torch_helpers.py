@@ -88,3 +88,61 @@ def masked_err(a, b):
     both = fa & fb
     err = scaled_err(a[both], b[both]) if bool(both.any()) else 0.0
     return err, float((fa != fb).double().mean())
+
+
+def deploy_inputs(T=120, T_hist=90, seed=0, epsilon=0.3):
+    """The native deployment artefact's inputs by the recipe of
+    tests/test_deploy.py:build_case, rebuilt with NumPy from the same draws:
+    (u, obs, params, s_init, Ps_init, s_final, Ps_final, Q, R_v), params a
+    dict of floats and (P,) arrays (the SIAlphaParams fields)."""
+    rng = np.random.default_rng(seed)
+    P = 12
+    obs = np.abs(rng.normal(1e-4, 2e-5, T))
+    obs[T_hist:] = np.nan
+    u = rng.integers(0, 3, (T, P)).astype(float)
+    u[T_hist:] = np.nan
+    params = dict(dt=1.0, beta=0.2, gamma=1 / 7, a=0.004 * rng.random(P),
+                  b=0.05, u_min=np.zeros(P), u_max=U_MAX.copy(), s_min=1e-6,
+                  i_min=1e-6, alpha_min=1e-8, alpha_max=100.0,
+                  epsilon=epsilon, w=np.ones(P), sigma=1e6)
+    s_init = np.array([0.999, 1e-4, 0.3, 0, 0, 0.0])
+    Ps_init = np.diag([1e-4, 1e-6, 0.1, 1e-7, 1e-7, 1e-7])
+    s_final = np.array([np.nan, np.nan, np.nan, 0, 0, 0.0])
+    Ps_final = np.full((6, 6), np.nan)
+    Ps_final[3, 3] = Ps_final[4, 4] = Ps_final[5, 5] = 1e-8
+    Q = np.diag([1e-8, 1e-8, 1e-4, 1e-8, 1e-8, 1e-8])
+    R_v = np.full(T, 4e-10)
+    return u, obs, params, s_init, Ps_init, s_final, Ps_final, Q, R_v
+
+
+def deploy_history(u, params, s0, T_hist):
+    """The historic (s, i, alpha) trajectory, (T_hist, 3): the noise-free
+    controlled SI-alpha roll of tests/test_deploy.py:114-122 from s0[:3]
+    under the historic inputs u[:T_hist], with params' dt, rates and
+    alpha bounds (the initial condition dropped)."""
+    p = {k: np.asarray(v, float) for k, v in params.items()}
+    dt, beta, gamma, b = (float(p[k]) for k in ("dt", "beta", "gamma", "b"))
+    lo, hi = float(p["alpha_min"]), float(p["alpha_max"])
+    sc, ic, al = (float(v) for v in np.asarray(s0, float)[:3])
+    hist = []
+    for t in range(T_hist):
+        drive = float(p["a"] @ (p["u_max"] - u[t]))
+        sc, ic, al = (
+            min(1.0, max(0.0, sc - dt * al * sc * ic)),
+            min(1.0, max(0.0, ic + dt * (al * sc * ic - beta * ic))),
+            min(hi, max(lo, al + dt * (-gamma * al + gamma * b
+                                       + gamma * drive))))
+        hist.append((sc, ic, al))
+    return np.array(hist)
+
+
+def deploy_sweep_args(eps, seed=0, T_hist=90):
+    """The native sweep's positional arguments on deploy_inputs (u, x,
+    T_hist, params, eps, s_init, Ps_init, s_final, Ps_final, Q, R_v,
+    sia_hist): the prescribed window from T_hist, the history by
+    deploy_history."""
+    u, obs, params, s_init, Ps_init, s_final, Ps_final, Q, R_v = \
+        deploy_inputs(T_hist=T_hist, seed=seed)
+    sia = deploy_history(u, params, s_init, T_hist)
+    return (u, obs, T_hist, params, eps, s_init, Ps_init, s_final, Ps_final,
+            Q, R_v, sia)

@@ -24,6 +24,13 @@ bound, tests/test_spatial.py:153-154): the kernel sums in source order, the
 plain version in PyTorch's reduction order (a float32 sequential sum differs
 from the plain version by 3.3e-7 of the largest force at N = 300, CPU run).
 
+The native deployment artefact's card build (csrc/newcase_ekf.cu, float64,
+compiled without fused multiply-adds) equals its CPU build bit for bit, the
+sweep and the single-epsilon entry, through the device-pointer and the
+host-pointer entries, at lane counts that are and are not multiples of its
+32-lane blocks, and matches the sweep's plain version on the card
+(prescriptions equal, J0 and J1 at rtol 1e-9).
+
 The generic EKF/EKS core, the MATLAB-exact pinv, the regressions and the Rt
 estimator have no hand-written kernel: they run as tensor ops on the card
 and are held against the same calls on the CPU in float64, at the
@@ -36,6 +43,10 @@ import numpy as np
 import pytest
 import torch
 
+from epidemicmodeling_torch.deploy import (native as deploy_native,
+                                           newcase_ekf_optimal_npi_native,
+                                           newcase_ekf_pareto_sweep_native,
+                                           pareto_sweep_plain)
 from epidemicmodeling_torch.ops.cuda import (build, ekf3_kernel, ekf6_kernel,
                                              pairwise_kernel, roofline_kernel,
                                              stencil_kernel)
@@ -59,7 +70,8 @@ from chip_smoke import (EKF3_BOUNDS, FILTER_TYPES, LM_COST_RTOL, LM_RTOL,
                         per_capita_case, pinv_ranks_agree, row_err,
                         rt_series, shooting_certificates, small_lstm_parity,
                         sweep_errs)
-from tests._torch_helpers import (make_inputs, masked_err, packed_args,
+from tests._torch_helpers import (deploy_inputs, deploy_sweep_args,
+                                  make_inputs, masked_err, packed_args,
                                   scaled_err)
 
 pytestmark = pytest.mark.cuda
@@ -1080,3 +1092,81 @@ def test_features_ridge_arx_and_svr_on_the_card_match_the_cpu(cuda):
         torch.testing.assert_close(svr_predict(got, X).cpu(),
                                    svr_predict(ref, X), rtol=1e-9,
                                    atol=1e-12)
+
+
+@pytest.mark.parametrize("beta_ekf", [1.0, 0.9])
+@pytest.mark.parametrize("E", [1, 37, 300])
+def test_newcase_ekf_card_equals_the_cpu_build(cuda, E, beta_ekf):
+    eps = np.logspace(-8, 0, E)
+    args = deploy_sweep_args(eps)
+    before = deploy_native.launches
+    card = newcase_ekf_pareto_sweep_native(*args, beta_ekf=beta_ekf)
+    assert deploy_native.launches == before + 1
+    cpu = newcase_ekf_pareto_sweep_native(*args, beta_ekf=beta_ekf,
+                                          device="cpu")
+    d = deploy_native.native_inputs(*(args[i] for i in (0, 1, 3, 5, 6, 7, 8,
+                                                        9, 10)))
+    host = deploy_native.sweep_host_entry(d, eps, args[2], args[11],
+                                          beta_ekf)
+    for k in cpu:
+        np.testing.assert_array_equal(card[k], cpu[k], err_msg=k)
+        np.testing.assert_array_equal(host[k], cpu[k], err_msg=k)
+    plain = pareto_sweep_plain(*args, beta_ekf=beta_ekf, device=cuda)
+    np.testing.assert_array_equal(plain["U_OPT_SMOOTH"].cpu().numpy(),
+                                  cpu["U_OPT_SMOOTH"])
+    for k in ("J0", "J1"):
+        np.testing.assert_allclose(plain[k].cpu().numpy(), cpu[k],
+                                   rtol=1e-9, atol=0, err_msg=k)
+
+
+@pytest.mark.parametrize("beta_ekf", [1.0, 0.9])
+@pytest.mark.parametrize("epsilon", [0.05, 0.5])
+def test_newcase_ekf_single_entry_card_equals_the_cpu_build(cuda, epsilon,
+                                                            beta_ekf):
+    args = deploy_inputs(epsilon=epsilon)
+    card = newcase_ekf_optimal_npi_native(*args, beta_ekf=beta_ekf)
+    cpu = newcase_ekf_optimal_npi_native(*args, beta_ekf=beta_ekf,
+                                         device="cpu")
+    for k in cpu:
+        np.testing.assert_array_equal(card[k], cpu[k], err_msg=k)
+
+
+def test_newcase_ekf_card_refuses_what_it_cannot_take(cuda):
+    args = deploy_sweep_args(np.array([0.1, 0.2]))
+    with pytest.raises(ValueError, match="card build's limit"):
+        newcase_ekf_pareto_sweep_native(
+            *args, inv_monitor_len=deploy_native.MONITOR_MAX + 1)
+    bad = list(args)
+    bad[2], bad[11] = 0, np.zeros((0, 3))
+    with pytest.raises(RuntimeError, match="newcase_ekf_sweep_device"):
+        newcase_ekf_pareto_sweep_native(*bad)
+    d = deploy_native.to_device(deploy_native.native_inputs(
+        *(args[i] for i in (0, 1, 3, 5, 6, 7, 8, 9, 10))), cuda)
+    with pytest.raises(ValueError, match="float64"):
+        deploy_native.newcase_ekf_sweep(
+            d, torch.tensor([0.1], dtype=torch.float32, device=cuda))
+
+
+def test_stage_timer_waits_for_the_card(cuda, monkeypatch):
+    from epidemicmodeling_torch.utils.profiling import StageTimer
+    seen, real = [], torch.cuda.synchronize
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda d=None: (seen.append(d), real(d)))
+    x = torch.ones(1 << 20, device=cuda)
+    timer = StageTimer()
+    with timer.stage("card", block_on=[x, {"y": (x,)}, 1.0]):
+        x = x * 2
+    assert seen == [cuda] and "card" in timer.times
+
+
+def test_torch_trace_captures_card_kernels(cuda, tmp_path):
+    import json
+    from epidemicmodeling_torch.utils.profiling import torch_trace
+    with torch_trace(str(tmp_path)):
+        y = torch.randn(256, 256, device=cuda) @ torch.randn(256, 256,
+                                                             device=cuda)
+        torch.cuda.synchronize()
+    (trace,) = tmp_path.glob("*.pt.trace.json")
+    events = json.loads(trace.read_text())["traceEvents"]
+    assert any(e.get("cat") == "kernel" for e in events)
+    assert y.shape == (256, 256)

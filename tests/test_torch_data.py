@@ -126,7 +126,9 @@ def test_port_imports_no_jax_or_pandas():
                    "ops/diagnostics.py", "analysis/shooting.py",
                    "ml/lstm.py", "ml/svr.py", "models/seirp.py",
                    "parallel/mesh.py", "parallel/multihost.py",
-                   "ops/parallel_kf.py", "viz/plots.py"):
+                   "ops/parallel_kf.py", "viz/plots.py",
+                   "deploy/native.py", "deploy/plain.py",
+                   "utils/profiling.py"):
         assert os.path.join(PORT_ROOT, module) in files, module
     bad = [(os.path.relpath(f, os.path.dirname(PORT_ROOT)), mod)
            for f in files for mod in _imports(f)
