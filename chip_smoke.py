@@ -139,10 +139,13 @@ CUDA toolkit (nvcc). In order, it:
    (deploy/src/newcase_ekf.cpp: prescriptions equal, J0 and J1 at rtol
    1e-12, bit for bit expected) and against the plain version on the card
    (prescriptions equal, J0 and J1 at rtol 1e-9); the single-epsilon entry
-   against the CPU build at beta_ekf 1 and 0.9; then the kernel's time
-   (CUDA events around the device-pointer entry), the host-pointer entry's
-   wall with its copies, the threaded CPU build's and the plain version's
-   walls beside the float64 bound.
+   against the CPU build at beta_ekf 1 and 0.9; the kernel's geometry
+   (lanes a block, blocks, and the SMs they ran on, which the kernel
+   records: at least DEPLOY_MIN_SMS) and ptxas' registers, stack and
+   spills; then the kernel's time (CUDA events around the device-pointer
+   entry), the host-pointer entry's wall with its copies and its parts
+   (allocation, copies in, kernel, copies out, free), the threaded CPU
+   build's and the plain version's walls beside the float64 bound.
 
 Every failed check raises, so the exit code is non-zero. Only when all
 phases pass does it print the kernel JSON line, the card's name and power
@@ -153,7 +156,8 @@ and each EKS kernel's launches on the CLI's and the backtest's warm runs,
 ekf3's on train_npi_prescriptor's and ekf6's on prescribe_from_checkpoint's,
 and every EKS, stencil, pairwise and roofline kernel's launches on the
 5 x 1 mesh run (mesh_launches), all measured in the same run; newcase_ekf's
-entry (not a TPU kernel) adds the CPU build's and the host entry's walls;
+entry (not a TPU kernel) adds the CPU build's and the host entry's walls,
+the host entry's parts, the geometry and the ptxas lines;
 roofline's entry is its copy kernel, launched by
 phase 9 alone (no path of the system runs it).
 """
@@ -497,6 +501,8 @@ ARX_COST_RTOL = 1e-11
 DEPLOY_EPS, DEPLOY_EPS_RANGE = 2000, (-8, -2)
 DEPLOY_BETA = 0.9
 DEPLOY_CPU_RTOL, DEPLOY_PLAIN_RTOL = 1e-12, 1e-9
+# the SMs the sweep's blocks must land on (2,000 lanes are 125 blocks)
+DEPLOY_MIN_SMS = 120
 # the card's float64 peak outside the tensor cores (H100 SXM data sheet)
 PEAK_F64_PER_S = 34e12
 
@@ -1344,17 +1350,18 @@ def turns_ms(runs: dict, reps: int) -> dict:
     return times
 
 
-def ptxas_usage(report: str, kernel: str) -> str:
-    """The -Xptxas -v line "Used ... registers, ..." of the kernel whose
-    mangled name holds ``kernel``."""
+def ptxas_usage(report: str, kernel: str, what: str = "registers") -> str:
+    """A -Xptxas -v line of the kernel whose mangled name holds ``kernel``:
+    "Used ... registers, ..." (what="registers") or "... bytes stack frame,
+    ... spill stores, ... spill loads" (what="stack frame")."""
     lines = report.splitlines()
     for i, line in enumerate(lines):
         if "Compiling entry function" in line and kernel in line:
             for nxt in lines[i + 1:]:
                 if "Compiling entry function" in nxt:
                     break
-                if "Used" in nxt and "registers" in nxt:
-                    return nxt.split(":", 1)[1].strip()
+                if what in nxt and (what != "registers" or "Used" in nxt):
+                    return nxt.split(":", 1)[-1].strip()
     return "not in the ptxas report"
 
 
@@ -3306,8 +3313,9 @@ def newcase_ops(case: dict) -> float:
       sums over its length (7 a finite x, 5 another step) and R (4), with
       beta_ekf = 1 nothing, as nothing reads it;
     - T - 1 smoother steps: P+ A^T (216), the gain by an LU factorization
-      with 6 right-hand sides (521), the smoothed state (78), P- - Ps,
-      J (.) J^T, P+ - that (36 + 2 x 396 + 36), gamma s5 (1);
+      with 6 right-hand sides (521), the smoothed state (78), gamma s5 (1);
+      the smoothed covariance (P- - Ps, J (.) J^T, P+ - that) feeds no
+      output and is not counted;
     - the bang-bang law, 2 for each optimized cell of rows 0..T-2, in each
       pass (the last row's inputs are 0);
     - the horizon's re-simulation (15 + 3 P a step) and the two divisions.
@@ -3323,13 +3331,12 @@ def newcase_ops(case: dict) -> float:
     opt = int(np.isnan(case["u"][:-1]).sum())   # optimized cells, rows < T-1
     valid = int((~np.isnan(case["x"])).sum())
     sparse = 6 * (2 * 21 - 6)         # 6 x 6 times A^T (A's 21 nonzeros)
-    dense = 6 * 6 * 11                # 6 x 6 times a full 6 x 6
     predict = 29 + 3 * P + 13 + 2 * sparse + 36
     update = 4 + 30 + 7 + 1 + 6 + 30 + 108 + 12
     monitor = (valid * (7 + 4) + (T - valid) * 5) if adaptive else 0
     fwd = (T - 1) * predict + valid * update + monitor + 2 * opt
     lu = sum(m + 2 * m * m for m in range(6)) + 6 * (30 + 36)
-    bwd = (T - 1) * (sparse + lu + 78 + 36 + 2 * dense + 36 + 1) + 2 * opt
+    bwd = (T - 1) * (sparse + lu + 78 + 1) + 2 * opt
     score = (T - T_hist) * (15 + 3 * P) + 2 * opt + 2
     shared = 3 * T_hist + 2 * (T * P - opt)
     return float(E * (fwd + bwd + score) + shared)
@@ -3337,13 +3344,18 @@ def newcase_ops(case: dict) -> float:
 
 def newcase_ops_as_written(case: dict) -> float:
     """float64 operations (add, sub, mul, div) of the sweep on these inputs,
-    counted from csrc/newcase_ekf.cuh as written, every product of 6 x 6
-    matrices dense and every elimination row of mrdivide taken: per step a
-    forward (its update where x is finite, the monitor and the adaptive R)
-    and, but for the last step, a backward; the bang-bang law (4) and the
-    band test (2 divisions) per optimized input cell in each pass; then the
-    horizon's re-simulation and the costs. The band term itself (7 where
-    phi lies in the band) is left out: it depends on the states."""
+    counted from csrc/newcase_ekf.cu as written, each element once (not the
+    team's redundant copies of the cheap shared terms), every product of 6
+    x 6 matrices dense: per step a forward (C and the observation, the
+    state update, the Jacobian, A P+, (A P+) A^T + Q and the smoother's
+    P+ A^T; its update where x is finite; with beta_ekf != 1 the monitor),
+    and, but for the last step, a smoother step (mrdivide's divisions and
+    eliminations on the columns still read: the 6 right-hand columns and
+    the 5 - c left columns after pivot column c; the smoothed state); the
+    bang-bang law (4) per optimized input cell in each pass and the band
+    test (2 divisions) in the forward; then the horizon's re-simulation and
+    the costs. The band term itself (7 where phi lies in the band) is left
+    out: it depends on the states."""
     T, P = case["u"].shape
     T_hist, E = case["T_hist"], len(case["eps_values"])
     L, adaptive = 21, case["beta_ekf"] != 1.0
@@ -3351,19 +3363,17 @@ def newcase_ops_as_written(case: dict) -> float:
     valid = int((~np.isnan(case["x"])).sum())
     product = 6 * 6 * 12             # a dense 6 x 6 product
     state_update, jacobian = 36 + 3 * P, 49
-    # C and the predicted observation; A P+ A^T + Q
-    fwd_step = 5 + state_update + jacobian + 2 * product + 36
-    # P- C^T, S, the innovation, K, (I - K C) P- / gamma, s+, the monitor
-    update = 72 + 13 + 1 + 6 + 36 * 24 + 36 + 12 + (L + 1) + 3
-    adapt = (L + 1) + 4 if adaptive else 0
-    fwd = (T * fwd_step + valid * (update + adapt) + (T - valid) * (L + 2)
-           + nan_cells * (4 + 6))
-    # A^T, mrdivide (12 divisions and 5 eliminated rows a column), the
-    # smoothed state, P- - Ps, J Pd J^T, P+ - that, the smoothed inputs
-    mrdivide = 6 * (12 + 5 * 24)
-    bwd_step = (jacobian + product + mrdivide + 6 + 72 + 36 + 2 * product
-                + 36 + state_update)
-    bwd = (T - 1) * bwd_step + nan_cells * (4 + 6)
+    fwd_step = 5 + state_update + jacobian + 3 * product + 36
+    # P- C^T, S, the innovation, K, (I - K C) P- / gamma, s+
+    update = 72 + 13 + 1 + 6 + 36 * 24 + 36 + 12
+    # the monitor: the mean and squared deviation, then the deviations'
+    # mean and R on a finite x; the mean and its square on another step
+    monitor = ((valid * ((L + 1) + 3 + (L + 1) + 4) + (T - valid) * (L + 2))
+               if adaptive else 0)
+    fwd = (T * fwd_step + valid * update + monitor + nan_cells * (4 + 2))
+    left = sum(5 - c for c in range(6))
+    mrdivide = (36 + left) + 5 * 2 * (36 + left)
+    bwd = (T - 1) * (mrdivide + 6 + 72) + nan_cells * 4
     score = (T - T_hist) * (20 + 3 * P) + 3 * T_hist + 2 * T * P + 2
     return float(E * (fwd + bwd + score))
 
@@ -3438,9 +3448,11 @@ def deploy_phase(device):
     card = card_line()
     so = deploy_native.build_library()
     _, report = build.build("newcase_ekf")
+    ptxas = {w: ptxas_usage(report, "newcase_ekf_kernel", w)
+             for w in ("registers", "stack frame")}
     log(f"deploy: CPU build {Path(so).name} in "
         f"{time.perf_counter() - t0:.1f}s; ptxas newcase_ekf_kernel: "
-        f"{ptxas_usage(report, 'newcase_ekf_kernel')}")
+        f"{ptxas['registers']}; {ptxas['stack frame']}")
     case = deploy_case()
     reset_launches()
     t1 = time.perf_counter()
@@ -3449,6 +3461,20 @@ def deploy_phase(device):
     n = read_launches()
     check(n["newcase_ekf"] == 1 and sum(n.values()) == 1,
           f"deploy sweep: launches {n}, one newcase_ekf launch expected")
+    sms = deploy_native.block_sms(DEPLOY_EPS)
+    n_sms = torch.cuda.get_device_properties(device).multi_processor_count
+    geometry = dict(lanes_a_block=deploy_native.LANES,
+                    threads_a_block=(deploy_native.M + 1)
+                    * deploy_native.LANES,
+                    blocks=len(sms), sms_used=len(set(sms.tolist())),
+                    sms=n_sms)
+    log(f"deploy kernel geometry: {geometry['lanes_a_block']} lanes a block "
+        f"({geometry['threads_a_block']} threads), {geometry['blocks']} "
+        f"blocks on {geometry['sms_used']} of {n_sms} SMs "
+        f"(the SM of each block, recorded by the kernel)")
+    check(geometry["sms_used"] >= min(DEPLOY_MIN_SMS, len(sms)),
+          f"deploy sweep: {geometry['blocks']} blocks ran on "
+          f"{geometry['sms_used']} SMs")
     threads, cpu_walls = os.cpu_count(), []
     for _ in range(3):
         t1 = time.perf_counter()
@@ -3505,14 +3531,21 @@ def deploy_phase(device):
     sia_t = torch.from_numpy(case["sia_hist"]).to(device)
     ms = cuda_ms(lambda: deploy_native.newcase_ekf_sweep(
         dc, eps_t, T_hist, sia_t, DEPLOY_BETA))
-    host = []
+    host, phases = [], []
     for _ in range(3):
         t1 = time.perf_counter()
         res = deploy_native.sweep_host_entry(
             d, case["eps_values"], T_hist, case["sia_hist"], DEPLOY_BETA)
         host.append(time.perf_counter() - t1)
+        phases.append(deploy_native.host_entry_phases())
     check(all(np.array_equal(res[k], got[k]) for k in got),
           "deploy host-pointer entry: outputs differ from the device entry")
+    host_phases = {k: float(np.median([ph[k] for ph in phases]))
+                   for k in deploy_native.HOST_PHASES}
+    log("deploy host-pointer entry's parts (ms, median of 3; the C entry's "
+        "own clock): " + ", ".join(f"{k} {v:.3f}"
+                                   for k, v in host_phases.items())
+        + f"; the wall around the call {1e3 * float(np.median(host)):.3f}")
     b_ms, b_by, scratch_ms = newcase_bound(case)
     log(f"kernel newcase_ekf [deploy sweep] E={DEPLOY_EPS} T="
         f"{case['u'].shape[0]}: kernel_ms={ms:.3f} (median of 5 warm calls) "
@@ -3534,10 +3567,11 @@ def deploy_phase(device):
                 cpu_build_ms=1e3 * cpu_wall, cpu_build_threads=threads,
                 host_entry_ms=1e3 * float(np.median(host)),
                 scratch_traffic_ms=scratch_ms, u_max_share=share,
+                host_entry_phases_ms=host_phases,
                 ops=newcase_ops(case),
                 ops_as_written=newcase_ops_as_written(case),
                 cpu_build_max_rel_err=max(errs.values()),
-                bit_for_bit=bits)
+                bit_for_bit=bits, ptxas=ptxas, **geometry)
 
 
 def kernel_entries(measured, xprize_launches, stencil_cases, sim_launches,

@@ -3,7 +3,11 @@
 // the port's native deployment artefact:
 // - deploy/src/newcase_ekf.cpp, the CPU library (g++), the counterpart of
 //   epidemicmodeling_tpu/deploy/src/newcase_ekf.cpp;
-// - csrc/newcase_ekf.cu, the card library (nvcc, sm_90a), one thread a lane.
+// - csrc/newcase_ekf.cu, the card library (nvcc, sm_90a), a team of threads
+//   a lane, which calls the pieces below (observe, switching, bang_bang,
+//   in_band, band_term, state_step, jacobian_at, margin_unit, margin_alpha,
+//   resim_step) where it spreads a step over its team or batches its
+//   loads.
 //
 // Every function is the JAX package's library's code (newcase_ekf.cpp:25-173
 // for the helpers, :179-340 for the two passes) in the same operation order:
@@ -117,20 +121,24 @@ struct Params {
     int P;
 };
 
-// Bang-bang fill + state update (SIAlphaModelEKFOptControlled.m:39-74)
-NCE_FN void state_update(const double* u_in, const double* s, const Params& p,
-                         double* u_out, double* s_next) {
-    const double dt = p.dt;
-    double drive_u = 0.0;
-    for (int k = 0; k < p.P; ++k) {
-        double uk = u_in[k];
-        if (is_nan(uk)) {
-            double phi = p.epsilon * p.w[k] - p.gamma * s[5] * p.a[k];
-            uk = (phi > 0.0) ? p.u_min[k] : p.u_max[k];
-        }
-        u_out[k] = uk;
-        drive_u += p.a[k] * (p.u_max[k] - uk);
+// The switching function of input k at costate s5.
+NCE_FN double switching(const Params& p, double s5, int k) {
+    return p.epsilon * p.w[k] - p.gamma * s5 * p.a[k];
+}
+
+// Input k with a NaN filled by the bang-bang law at costate s5.
+NCE_FN double bang_bang(double uk, double s5, const Params& p, int k) {
+    if (is_nan(uk)) {
+        double phi = switching(p, s5, k);
+        uk = (phi > 0.0) ? p.u_min[k] : p.u_max[k];
     }
+    return uk;
+}
+
+// The Euler step of the SI-alpha/costate model, given the drive of alpha.
+NCE_FN void state_step(const double* s, double drive_u, const Params& p,
+                       double* s_next) {
+    const double dt = p.dt;
     double rho = s[3] - s[4] - (1.0 - p.epsilon);
     s_next[0] = clip(s[0] - dt * s[2] * s[0] * s[1], 0.0, 1.0);
     s_next[1] = clip(s[1] + dt * (s[2] * s[0] * s[1] - p.beta * s[1]),
@@ -143,8 +151,32 @@ NCE_FN void state_update(const double* u_in, const double* s, const Params& p,
     s_next[5] = s[5] + dt * (rho * s[0] * s[1] + p.gamma * s[5]);
 }
 
-NCE_FN void state_jacobian(const double* u_in, const double* s,
-                           const Params& p, Mat6& A) {
+// Bang-bang fill + state update (SIAlphaModelEKFOptControlled.m:39-74)
+NCE_FN void state_update(const double* u_in, const double* s, const Params& p,
+                         double* u_out, double* s_next) {
+    double drive_u = 0.0;
+    for (int k = 0; k < p.P; ++k) {
+        double uk = bang_bang(u_in[k], s[5], p, k);
+        u_out[k] = uk;
+        drive_u += p.a[k] * (p.u_max[k] - uk);
+    }
+    state_step(s, drive_u, p, s_next);
+}
+
+// Whether a switching value lies in the sigma band, and input k's term of
+// the band's Jacobian entry A[2][5].
+NCE_FN bool in_band(double phi, const Params& p) {
+    return phi > -1.0 / p.sigma && phi < 1.0 / p.sigma;
+}
+
+NCE_FN double band_term(const Params& p, int k) {
+    return p.gamma * p.dt * (p.sigma / 2.0) * p.a[k]
+           * (p.u_max[k] - p.u_min[k]);
+}
+
+// The Jacobian at s, its band entry A[2][5] = a36 given.
+NCE_FN void jacobian_at(const double* s, double a36, const Params& p,
+                        Mat6& A) {
     const double dt = p.dt;
     zero(A);
     A.a[0][0] = 1.0 - dt * s[2] * s[1];
@@ -154,15 +186,6 @@ NCE_FN void state_jacobian(const double* u_in, const double* s,
     A.a[1][1] = 1.0 + dt * (s[0] * s[2] - p.beta);
     A.a[1][2] = dt * s[0] * s[1];
     A.a[2][2] = 1.0 - dt * p.gamma;
-    double a36 = 0.0;
-    for (int k = 0; k < p.P; ++k) {
-        if (is_nan(u_in[k])) {
-            double phi = p.epsilon * p.w[k] - p.gamma * s[5] * p.a[k];
-            if (phi > -1.0 / p.sigma && phi < 1.0 / p.sigma)
-                a36 -= p.gamma * dt * (p.sigma / 2.0) * p.a[k]
-                       * (p.u_max[k] - p.u_min[k]);
-        }
-    }
     A.a[2][5] = a36;
     double rho = s[3] - s[4] - (1.0 - p.epsilon);
     A.a[3][1] = dt * s[2] * rho;
@@ -180,16 +203,46 @@ NCE_FN void state_jacobian(const double* u_in, const double* s,
     A.a[5][5] = 1.0 + dt * p.gamma;
 }
 
-NCE_FN void hard_margins(double* s, const Params& p) {
-    // min(1, max(0, .)) — NaN -> 0 branch (clip_hi_lo order)
-    for (int i = 0; i < 2; ++i) {
-        double v = (s[i] > 0.0) ? s[i] : 0.0;   // max(0, v): NaN -> 0
-        if (is_nan(s[i])) v = 0.0;
-        s[i] = (v < 1.0) ? v : 1.0;
+NCE_FN void state_jacobian(const double* u_in, const double* s,
+                           const Params& p, Mat6& A) {
+    double a36 = 0.0;
+    for (int k = 0; k < p.P; ++k) {
+        if (is_nan(u_in[k])) {
+            double phi = switching(p, s[5], k);
+            if (in_band(phi, p)) a36 -= band_term(p, k);
+        }
     }
-    double v = (s[2] > p.alpha_min) ? s[2] : p.alpha_min;
-    if (is_nan(s[2])) v = p.alpha_min;
-    s[2] = (v < p.alpha_max) ? v : p.alpha_max;
+    jacobian_at(s, a36, p, A);
+}
+
+// min(1, max(0, v)) — NaN -> 0 branch (clip_hi_lo order)
+NCE_FN double margin_unit(double v) {
+    double m = (v > 0.0) ? v : 0.0;   // max(0, v): NaN -> 0
+    if (is_nan(v)) m = 0.0;
+    return (m < 1.0) ? m : 1.0;
+}
+
+NCE_FN double margin_alpha(double v, const Params& p) {
+    double m = (v > p.alpha_min) ? v : p.alpha_min;
+    if (is_nan(v)) m = p.alpha_min;
+    return (m < p.alpha_max) ? m : p.alpha_max;
+}
+
+NCE_FN void hard_margins(double* s, const Params& p) {
+    s[0] = margin_unit(s[0]);
+    s[1] = margin_unit(s[1]);
+    s[2] = margin_alpha(s[2], p);
+}
+
+// The observation x = s i alpha at s, clipped below at 0 (NaN -> 0), and its
+// row C = d(obs)/ds.
+NCE_FN void observe(const double* s, double* C, double& x_pred) {
+    C[0] = s[1] * s[2];
+    C[1] = s[0] * s[2];
+    C[2] = s[0] * s[1];
+    C[3] = C[4] = C[5] = 0.0;
+    x_pred = s[0] * s[1] * s[2];
+    if (x_pred < 0.0 || is_nan(x_pred)) x_pred = 0.0;  // obs margin
 }
 
 // The innovation monitor: the last len innovations and their squared
@@ -213,11 +266,8 @@ NCE_FN void forward_step(int t, const double* u_t, double x_t, double R_t,
     const int L = mon.len;
     if (!adaptive) R = R_t;
 
-    // observation: x = s*i*alpha, C = d(obs)/ds
-    double C[M] = {sk_minus[1] * sk_minus[2], sk_minus[0] * sk_minus[2],
-                   sk_minus[0] * sk_minus[1], 0, 0, 0};
-    double x_pred = sk_minus[0] * sk_minus[1] * sk_minus[2];
-    if (x_pred < 0.0 || is_nan(x_pred)) x_pred = 0.0;  // obs margin
+    double C[M], x_pred;
+    observe(sk_minus, C, x_pred);
 
     double K[M] = {0, 0, 0, 0, 0, 0};
     bool valid = !is_nan(x_t);
@@ -340,6 +390,19 @@ NCE_FN void backward_step(const double* u_t, const double* s_plus_t,
     state_update(u_t, s_sm, p, u_sm_t, s_next_dummy);
 }
 
+// One noise-free Euler step of (s, i, alpha) under the drive drive_u
+// (SIalpha_Controlled), in place.
+NCE_FN void resim_step(double drive_u, double dt, double beta_model,
+                       double gamma_model, double b_coef, double alpha_min,
+                       double alpha_max, double& sc, double& ic, double& al) {
+    double s1 = clip(sc - dt * al * sc * ic, 0.0, 1.0);
+    double i1 = clip(ic + dt * (al * sc * ic - beta_model * ic), 0.0, 1.0);
+    double a1 = clip(al + dt * (-gamma_model * al + gamma_model * b_coef
+                                + gamma_model * drive_u),
+                     alpha_min, alpha_max);
+    sc = s1; ic = i1; al = a1;
+}
+
 // One epsilon lane's score (the JAX package's newcase_ekf.cpp:382-425):
 // re-simulate the horizon rows T_hist..T-1 noise-free from the historic
 // endpoint under the prescribed inputs u_out (T x P; SIalpha_Controlled
@@ -365,14 +428,8 @@ NCE_FN void horizon_costs(const double* u_out, const double* sia_hist,
         double drive_u = 0.0;
         for (int k = 0; k < P; ++k)
             drive_u += a_coef[k] * (u_max[k] - u_t[k]);
-        double s1 = clip(sc - dt * al * sc * ic, 0.0, 1.0);
-        double i1 = clip(ic + dt * (al * sc * ic - beta_model * ic),
-                         0.0, 1.0);
-        double a1 = clip(al + dt * (-gamma_model * al
-                                    + gamma_model * b_coef
-                                    + gamma_model * drive_u),
-                         alpha_min, alpha_max);
-        sc = s1; ic = i1; al = a1;
+        resim_step(drive_u, dt, beta_model, gamma_model, b_coef, alpha_min,
+                   alpha_max, sc, ic, al);
         sum_cases += sc * ic * al;
     }
     *J0 = sum_cases / (double)T;

@@ -8,8 +8,9 @@ interface, two builds of it:
 
 - the card build, ``csrc/newcase_ekf.cu`` (nvcc for sm_90a through
   ops/cuda/build.py, without fused multiply-adds), the default: a
-  hand-written float64 kernel, one thread an epsilon lane, that runs the
-  filter, the smoother, the horizon's re-simulation and the costs. Its
+  hand-written float64 kernel, a team of threads an epsilon lane, that
+  runs the filter, the smoother, the horizon's re-simulation and the
+  costs. Its
   device-pointer entry takes tensors torch allocated, on torch's current
   stream; its host-pointer entries are the framework-free serving path;
 - the CPU build, ``deploy/src/newcase_ekf.cpp`` (g++ with the JAX package's
@@ -40,10 +41,11 @@ from ..utils.device import resolve_device
 from .plain import pareto_sweep_plain
 
 M = 6
-# the kernel's limits and scratch layout (csrc/newcase_ekf.cuh MAX_NPI,
-# csrc/newcase_ekf.cu MAX_MONITOR, SCRATCH_PER_LANE_STEP)
+# the kernel's limits, geometry and scratch layout (csrc/newcase_ekf.cuh
+# MAX_NPI, csrc/newcase_ekf.cu MAX_MONITOR, LANES, SCRATCH_PER_LANE_STEP)
 NPI_MAX = 64
 MONITOR_MAX = 64
+LANES = 16
 SCRATCH_PER_LANE_STEP = 2 * M + 2 * M * M
 
 SRC = Path(__file__).resolve().parent / "src" / "newcase_ekf.cpp"
@@ -66,7 +68,10 @@ _CARD_SIGNATURES = {
     "newcase_ekf_optimal_npi_cuda": _SINGLE,
     "newcase_ekf_pareto_sweep_cuda": _SWEEP_HEAD + [_P] + [_P] * 3,
     "newcase_ekf_sweep_device": _SWEEP_HEAD + [_P, _P] + [_P] * 5 + [_P],
+    "newcase_ekf_block_sms": [_P, _I],
+    "newcase_ekf_host_phases": [_P],
 }
+HOST_PHASES = ("alloc", "copy_in", "kernel", "copy_out", "free")
 _lock = threading.Lock()
 _cpu_handle = None
 
@@ -103,6 +108,30 @@ def _cpu_lib() -> ctypes.CDLL:
 
 def _card_lib() -> ctypes.CDLL:
     return _build.load("newcase_ekf", _CARD_SIGNATURES)
+
+
+def blocks(n_eps: int) -> int:
+    """The kernel's blocks for n_eps lanes (LANES a block)."""
+    return -(-int(n_eps) // LANES)
+
+
+def block_sms(n_eps: int) -> np.ndarray:
+    """The SM each block of the card's last launch at n_eps lanes ran on
+    (the kernel records it)."""
+    out = np.zeros(blocks(n_eps), dtype=np.int32)
+    lib = _card_lib()
+    _build.check(lib, "newcase_ekf", "newcase_ekf_block_sms",
+                 lib.newcase_ekf_block_sms(out.ctypes.data, len(out)))
+    return out
+
+
+def host_entry_phases() -> dict:
+    """The parts of the last host-pointer call's wall, ms, by HOST_PHASES:
+    the device allocation, the copies in, the kernel (launch to
+    synchronisation), the copies out, the free."""
+    out = np.zeros(len(HOST_PHASES))
+    _card_lib().newcase_ekf_host_phases(out.ctypes.data)
+    return dict(zip(HOST_PHASES, out.tolist()))
 
 
 def native_inputs(u, x, params, s_init, Ps_init, s_final, Ps_final, Q,

@@ -66,6 +66,31 @@ that the device, not the host, sets the time; rounds alternate the order.
 Every version's output, written into a NaN-filled buffer before and again
 after the timed calls, must equal x + 1 bit for bit.
 
+--newcase-csrc: commit fa6b3ff's sources, whose newcase_ekf.cu is the
+deployment artefact's card build before the team design (one thread an
+epsilon lane, 32 lanes a block):
+    mkdir -p build/prev_newcase
+    git archive fa6b3ff epidemicmodeling_torch/csrc | tar -x -C build/prev_newcase
+    python3 scripts/kernel_ab.py \\
+        --newcase-csrc build/prev_newcase/epidemicmodeling_torch/csrc
+It builds that newcase_ekf.cu (with its own newcase_ekf.cuh) with the
+port's flags for the kernel (--fmad=false), runs it and the port's through
+the device-pointer entry on chip_smoke.deploy_case() (2,000 epsilons x T
+= 532 x P = 12, float64, beta_ekf = 0.9), holds both bit for bit against
+each other and against the CPU build (U_OPT_SMOOTH, J0, J1) and times them
+in turns (old, new, new, old; each a median of 5 CUDA-event timed warm
+calls); it prints each build's ptxas lines and the SMs the new design's
+blocks ran on. Then, each in turns with the port's kernel: the probes of
+NEWCASE_PROBES (edits of its source: the smoother's loop removed, the
+smoother's barrier or the forward's second barrier taken twice, scoring
+without J1 or without J0; timed, not held to its outputs), the port's
+kernel with no scoring (J0, J1 null) and at beta_ekf = 1 (no monitor),
+and the designs of NEWCASE_VARIANT_FILES (scripts/variants/
+newcase_ekf_rounds.cu: one gain at a time, a barrier each pivot round),
+each held bit for bit against the port's outputs; and one launch of the
+port's kernel with clock64() counters added (NEWCASE_CLOCKS), whose
+outputs must stay bit for bit, printing the cycles of each phase of lane
+0 of block 0.
 For every source set it checks the parameter count of every function it
 calls (OLD_SIGNATURES, BASE_SIGNATURES) and stops before loading anything
 if one differs. It builds the old sources with the port's own nvcc flags
@@ -97,6 +122,7 @@ from epidemicmodeling_torch.ops.cuda import (build,  # noqa: E402
                                              ekf3_kernel, ekf6_kernel,
                                              pairwise_kernel, roofline_kernel,
                                              stencil_kernel)
+from epidemicmodeling_torch.deploy import native as deploy_native  # noqa: E402
 from epidemicmodeling_torch.spatial import PopulationSimConfig  # noqa: E402
 from epidemicmodeling_torch.spatial.agents import \
     default_environment  # noqa: E402
@@ -119,6 +145,87 @@ OLD_SIGNATURES = {
 BASE_SIGNATURES = {"ekf3": EKF3_SIG, "stencil": STENCIL_SIG}
 # commit d671226's roofline.cu
 PREV_SIGNATURES = {"roofline": roofline_kernel._SIGNATURES}
+# commit fa6b3ff's newcase_ekf.cu: the device-pointer entry
+NEWCASE_SIG = {"newcase_ekf_sweep_device":
+               deploy_native._CARD_SIGNATURES["newcase_ekf_sweep_device"]}
+# probes of where the port's newcase_ekf kernel spends its time, as edits of
+# its source (timed beside it, not held to its outputs)
+_BWD_BARRIER = "            cp_wait_all();\n            __syncthreads();\n"
+_FWD_BARRIER = "        __syncthreads();  // P+[t] and s+[t] are in place\n"
+NEWCASE_PROBES = {
+    # the smoother's loop removed: the forward, the terminal row, scoring
+    "forward only": [("    const int n_iter = T >= 2 ? T + 4 : 0;\n",
+                      "    const int n_iter = 0;\n")],
+    # the smoother's one barrier a step taken twice
+    "smoother barrier twice": [(_BWD_BARRIER, _BWD_BARRIER
+                                + "            __syncthreads();\n")],
+    # the forward's second barrier a step taken twice
+    "forward barrier twice": [(_FWD_BARRIER, 2 * _FWD_BARRIER)],
+    # scoring without J1 (thread 0) or without J0 (the monitor thread)
+    "scoring without J1": [
+        ("        if (g == 0)\n"
+         "            a.J1[lane] = weighted_sum(U, T * P, p.w, P) / "
+         "(double)(T * P);\n        else if (g == MON)\n",
+         "        if (g == MON)\n")],
+    "scoring without J0": [
+        ("        else if (g == MON)\n"
+         "            a.J0[lane] = horizon_j0(U, a, p);\n", "")],
+}
+# the clocks probe: clock64() read by thread 0 (row 0) and the monitor
+# thread of lane 0 of block 0 at each barrier, each span added to its slot:
+# (0) the forward's first phase, (1) the wait at its second barrier, (2)
+# the input terms, (3) the wait at the third barrier, (4) the products and
+# the next prior, (5) the wait at the step's first barrier (the forward's
+# last included); (6) a smoother iteration's work, (7) its barrier; (8) the
+# scoring. The values are the port's; only the counters are added.
+_CLK_TOP = ("        // step t's inputs, the rows of P-[t], R and x_pred are in "
+            "place\n        cp_wait_all();\n        __syncthreads();\n")
+NEWCASE_CLOCKS = [
+    ("__device__ int block_sm[MAX_SM_RECORD];\n",
+     "__device__ int block_sm[MAX_SM_RECORD];\n"
+     "__device__ long long probe_clk[2][10];\n"),
+    ("    const bool adaptive = (a.beta_ekf != 1.0);\n",
+     "    const bool adaptive = (a.beta_ekf != 1.0);\n"
+     "    const bool clk_on = blockIdx.x == 0 && l == 0 && (g == 0 || g == MON);\n"
+     "    long long clk_t = clock64();\n"
+     "    auto clk = [&](int slot) {\n"
+     "        if (!clk_on) return;\n"
+     "        const long long now = clock64();\n"
+     "        probe_clk[g == MON][slot] += now - clk_t;\n"
+     "        clk_t = now;\n"
+     "    };\n"),
+    (_CLK_TOP, "        clk(4);\n" + _CLK_TOP + "        clk(5);\n"),
+    (_FWD_BARRIER, "        clk(0);\n" + _FWD_BARRIER + "        clk(1);\n"),
+    ("        __syncthreads();  // the input terms are in place\n",
+     "        clk(2);\n        __syncthreads();  // the input terms are in "
+     "place\n        clk(3);\n"),
+    ("    __syncthreads();  // the forward's scratch and shared memory are "
+     "done\n",
+     "    clk(4);\n    __syncthreads();  // the forward's scratch and shared "
+     "memory are done\n    clk(5);\n"),
+    (_BWD_BARRIER, "            clk(6);\n" + _BWD_BARRIER
+     + "            clk(7);\n"),
+    ("    __syncthreads();  // U_OPT_SMOOTH is in place\n",
+     "    clk(6);\n    __syncthreads();  // U_OPT_SMOOTH is in place\n"
+     "    clk(7);\n"),
+    ("    }\n}\n\nint launch(const SweepArgs& a",
+     "    }\n    clk(8);\n}\n\nint launch(const SweepArgs& a"),
+    ("const char* newcase_ekf_error_string(int code) {",
+     "int newcase_ekf_probe_clocks(long long* out, int reset) {\n"
+     "    if (reset) {\n"
+     "        static const long long zero[2][10] = {};\n"
+     "        return (int)cudaMemcpyToSymbol(probe_clk, zero, sizeof(zero));\n"
+     "    }\n"
+     "    return (int)cudaMemcpyFromSymbol(out, probe_clk, sizeof(probe_clk));\n"
+     "}\n\n"
+     "const char* newcase_ekf_error_string(int code) {"),
+]
+CLOCK_SLOTS = ("first phase", "second barrier", "input terms", "third barrier",
+               "products and prior", "first barrier", "smoother work",
+               "smoother barrier", "scoring")
+# newcase_ekf designs tried and not kept, in scripts/variants/: held bit for
+# bit against the port's kernel and timed beside it
+NEWCASE_VARIANT_FILES = {"a barrier each pivot round": "newcase_ekf_rounds.cu"}
 COPY_SIG = {"roofline_copy": roofline_kernel._SIGNATURES["roofline_copy"]}
 ROOFLINE_SIZES = (1 << 26, 1 << 28, 1 << 30)
 ROOFLINE_BATCH = 5
@@ -504,10 +611,11 @@ def stencil_ab(libs, device):
     return out
 
 
-def build_variant(variant: Path, signatures: dict):
+def build_variant(variant: Path, signatures: dict,
+                  flags: tuple = build.NVCC_FLAGS):
     """nvcc a variant of a port kernel's source (it may include the port's
-    headers) and bind the functions of ``signatures``, which must have the
-    port's parameter counts; prints its ptxas lines."""
+    headers) with ``flags`` and bind the functions of ``signatures``, which
+    must have the port's parameter counts; prints its ptxas lines."""
     text = variant.read_text()
     for fn, sig in signatures.items():
         if n_params(text, fn) != len(sig):
@@ -515,7 +623,7 @@ def build_variant(variant: Path, signatures: dict):
                              "than the port's")
     OUT.mkdir(parents=True, exist_ok=True)
     so = OUT / f"variant_{variant.stem}.so"
-    proc = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-I",
+    proc = subprocess.run([build.nvcc_path(), *flags, "-I",
                            str(build.CSRC), "-o", str(so), str(variant)],
                           capture_output=True, text=True, check=False)
     if proc.returncode != 0:
@@ -759,6 +867,143 @@ def roofline_ab(prev_csrc: Path, device):
     return res
 
 
+def newcase_ab(prev_csrc: Path, device):
+    """The deployment artefact's sweep kernel: commit fa6b3ff's design (one
+    thread a lane) against the port's (a team of threads a lane) on
+    chip_smoke.deploy_case(), bit for bit against each other and the CPU
+    build, timed in turns."""
+    check_old_interface(prev_csrc, {"newcase_ekf": NEWCASE_SIG}, "fa6b3ff")
+    OUT.mkdir(parents=True, exist_ok=True)
+    so = OUT / "old_fa6b3ff_newcase_ekf.so"
+    proc = subprocess.run([build.nvcc_path(), *build.flags("newcase_ekf"),
+                           "-o", str(so), str(prev_csrc / "newcase_ekf.cu")],
+                          capture_output=True, text=True, check=False)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on old newcase_ekf.cu:\n"
+                           f"{proc.stderr}")
+    _, new_report = build.build("newcase_ekf")
+    ptxas = {}
+    for v, report in (("old", proc.stderr), ("new", new_report)):
+        ptxas[v] = {w: cs.ptxas_usage(report, "newcase_ekf_kernel", w)
+                    for w in ("registers", "stack frame")}
+        print(f"  ptxas {v} newcase_ekf_kernel: {ptxas[v]['registers']}; "
+              f"{ptxas[v]['stack frame']}", flush=True)
+    libs = {"old": ctypes.CDLL(str(so)), "new": deploy_native._card_lib()}
+    fn = "newcase_ekf_sweep_device"
+    getattr(libs["old"], fn).argtypes = NEWCASE_SIG[fn]
+    getattr(libs["old"], fn).restype = ctypes.c_int
+    probe_sources = {name: edited_source("newcase_ekf", name, edits)
+                     for name, edits in NEWCASE_PROBES.items()}
+    for name, file in NEWCASE_VARIANT_FILES.items():
+        probe_sources[name] = Path(__file__).resolve().parent / "variants" / file
+    with ThreadPoolExecutor(len(probe_sources)) as pool:
+        probes = dict(zip(probe_sources, pool.map(
+            lambda src: build_variant(src, NEWCASE_SIG,
+                                      build.flags("newcase_ekf")),
+            probe_sources.values())))
+
+    case = cs.deploy_case()
+    d = deploy_native.native_inputs(*(case[k] for k in (
+        "u", "x", "params", "s_init", "Ps_init", "s_final", "Ps_final", "Q",
+        "R_v")))
+    dc = deploy_native.to_device(d, device)
+    eps = torch.from_numpy(case["eps_values"]).to(device)
+    sia = torch.from_numpy(case["sia_hist"]).to(device)
+    T, P, E = d["T"], d["P"], eps.numel()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    p = lambda t: t.data_ptr()
+    nan = lambda *shape: torch.full(shape, float("nan"), dtype=torch.float64,
+                                    device=device)
+    def launcher(lib, beta_ekf=case["beta_ekf"], score=True):
+        out = dict(U_OPT_SMOOTH=nan(E, T, P), J0=nan(E), J1=nan(E))
+        scratch = nan(T * deploy_native.SCRATCH_PER_LANE_STEP * E)
+        costs = (p(out["J0"]), p(out["J1"])) if score else (None, None)
+
+        def run():
+            code = lib.newcase_ekf_sweep_device(
+                *deploy_native._head(dc, case["T_hist"], eps, E, beta_ekf,
+                                     0.995, 21),
+                p(sia), p(scratch), p(out["U_OPT_SMOOTH"]), *costs, None,
+                None, stream)
+            assert code == 0, f"newcase_ekf_sweep_device: CUDA error {code}"
+
+        run()
+        return out, run
+
+    outs, runs = {}, {}
+    for v, lib in libs.items():
+        outs[v], runs[v] = launcher(lib)
+    torch.cuda.synchronize()
+    sms = deploy_native.block_sms(E)   # the new design's last launch
+    cpu = deploy_native.newcase_ekf_pareto_sweep_native(**case, device="cpu")
+    got = {v: {k: o.cpu().numpy() for k, o in out.items()}
+           for v, out in outs.items()}
+    same = {"old vs new": all(np.array_equal(got["old"][k], got["new"][k])
+                              for k in cpu),
+            "new vs CPU build": all(np.array_equal(got["new"][k], cpu[k])
+                                    for k in cpu)}
+    times = turns(runs, reps=5)
+    m = {v: float(np.mean(ts)) for v, ts in times.items()}
+    # the probes, each in turns with the port's kernel (port, probe, probe,
+    # port): the edits above, no scoring (J0, J1 null) and beta_ekf = 1 (no
+    # monitor; other prescriptions, the same work otherwise)
+    probe_runs, probe_outs = {}, {}
+    for name, lib in probes.items():
+        probe_outs[name], probe_runs[name] = launcher(lib)
+    # the clocks probe: one launch, its counters read back
+    clocks_src = edited_source("newcase_ekf", "clocks", NEWCASE_CLOCKS)
+    clk_lib = build_variant(clocks_src, {
+        **NEWCASE_SIG, "newcase_ekf_probe_clocks": [ctypes.c_void_p, _I]},
+        build.flags("newcase_ekf"))
+    clk_out, clk_run = launcher(clk_lib)
+    counts = np.zeros((2, 10), dtype=np.int64)
+    torch.cuda.synchronize()
+    assert clk_lib.newcase_ekf_probe_clocks(counts.ctypes.data, 1) == 0
+    clk_run()
+    torch.cuda.synchronize()
+    assert clk_lib.newcase_ekf_probe_clocks(counts.ctypes.data, 0) == 0
+    clocks = {who: {slot: int(c) for slot, c in zip(CLOCK_SLOTS, row)}
+              for who, row in zip(("row 0", "monitor"), counts)}
+    clocks["bit_for_bit"] = all(np.array_equal(o.cpu().numpy(), got["new"][k])
+                                for k, o in clk_out.items())
+    print(f"newcase_ekf clocks (cycles, lane 0 of block 0, one launch at "
+          f"T={T}): {clocks}", flush=True)
+    probe_runs["no scoring"] = launcher(libs["new"], score=False)[1]
+    probe_runs["beta_ekf 1"] = launcher(libs["new"], beta_ekf=1.0)[1]
+    torch.cuda.synchronize()
+    probe_ms = {}
+    for name, run in probe_runs.items():
+        t = turns({"old": runs["new"], "new": run}, reps=5)
+        probe_ms[name] = dict(port_ms=float(np.mean(t["old"])),
+                              probe_ms=float(np.mean(t["new"])), runs=t)
+        if name in NEWCASE_VARIANT_FILES:
+            probe_ms[name]["bit_for_bit"] = all(
+                np.array_equal(o.cpu().numpy(), got["new"][k])
+                for k, o in probe_outs[name].items())
+        print(f"newcase_ekf {'variant' if name in NEWCASE_VARIANT_FILES else 'probe'}"
+              f" [{name}]: {probe_ms[name]['probe_ms']:.4f} ms beside the "
+              f"port's {probe_ms[name]['port_ms']:.4f}"
+              + (f"; bit for bit {probe_ms[name]['bit_for_bit']}"
+                 if name in NEWCASE_VARIANT_FILES else ""), flush=True)
+    b_ms, b_by, _ = cs.newcase_bound(case)
+    res = dict(old_ms=m["old"], new_ms=m["new"], runs=times,
+               probes=probe_ms, clocks=clocks,
+               speedup=m["old"] / m["new"], bound_ms=b_ms, bound_by=b_by,
+               new_over_bound=m["new"] / b_ms, bit_for_bit=same,
+               ptxas=ptxas, blocks=len(sms),
+               sms_used=len(set(sms.tolist())),
+               shape=f"E={E} T={T} P={P} float64 beta_ekf="
+                     f"{case['beta_ekf']}")
+    print(f"newcase_ekf E={E} T={T} P={P}: old {m['old']:.4f} ms, new "
+          f"{m['new']:.4f} ms ({res['speedup']:.2f}x; {res['new_over_bound']:.1f}x "
+          f"its {b_ms:.4f} ms bound, {b_by}); runs {times}; bit for bit "
+          f"{same}; new blocks {res['blocks']} on {res['sms_used']} SMs",
+          flush=True)
+    if not all(same.values()):
+        raise SystemExit(f"newcase_ekf: the designs differ ({same})")
+    return res
+
+
 def sass_counts(so: Path) -> dict:
     """SASS instruction count of each kernel in a library (cuobjdump)."""
     cuobjdump = Path(build.nvcc_path()).with_name("cuobjdump")
@@ -844,12 +1089,14 @@ def main():
                     "the port's (repeatable)")
     ap.add_argument("--roofline-csrc", type=Path,
                     help="commit d671226's epidemicmodeling_torch/csrc")
+    ap.add_argument("--newcase-csrc", type=Path,
+                    help="commit fa6b3ff's epidemicmodeling_torch/csrc")
     args = ap.parse_args()
     if (args.old_csrc is None and args.base_csrc is None
             and not args.stencil_variant and not args.ekf3_variant
-            and args.roofline_csrc is None):
+            and args.roofline_csrc is None and args.newcase_csrc is None):
         ap.error("give --old-csrc, --base-csrc, --stencil-variant, "
-                 "--ekf3-variant or --roofline-csrc")
+                 "--ekf3-variant, --roofline-csrc or --newcase-csrc")
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: this timing needs one card")
     device = torch.device("cuda", 0)
@@ -868,6 +1115,8 @@ def main():
         res[f"stencil variant {name}"] = stencil_variant_ab(name, device)
     if args.roofline_csrc is not None:
         res["roofline copy"] = roofline_ab(args.roofline_csrc, device)
+    if args.newcase_csrc is not None:
+        res["newcase_ekf"] = newcase_ab(args.newcase_csrc, device)
     if old is not None:
         res["ekf6"] = ekf6_ab(old, device)
         res["pairwise"] = pairwise_ab(old, device)

@@ -136,13 +136,13 @@ def deploy_history(u, params, s0, T_hist):
     return np.array(hist)
 
 
-def deploy_sweep_args(eps, seed=0, T_hist=90):
+def deploy_sweep_args(eps, seed=0, T_hist=90, T=120):
     """The native sweep's positional arguments on deploy_inputs (u, x,
     T_hist, params, eps, s_init, Ps_init, s_final, Ps_final, Q, R_v,
-    sia_hist): the prescribed window from T_hist, the history by
+    sia_hist): T days, the prescribed window from T_hist, the history by
     deploy_history."""
     u, obs, params, s_init, Ps_init, s_final, Ps_final, Q, R_v = \
-        deploy_inputs(T_hist=T_hist, seed=seed)
+        deploy_inputs(T=T, T_hist=T_hist, seed=seed)
     sia = deploy_history(u, params, s_init, T_hist)
     return (u, obs, T_hist, params, eps, s_init, Ps_init, s_final, Ps_final,
             Q, R_v, sia)

@@ -28,8 +28,9 @@ The native deployment artefact's card build (csrc/newcase_ekf.cu, float64,
 compiled without fused multiply-adds) equals its CPU build bit for bit, the
 sweep and the single-epsilon entry, through the device-pointer and the
 host-pointer entries, at lane counts that are and are not multiples of its
-32-lane blocks, and matches the sweep's plain version on the card
-(prescriptions equal, J0 and J1 at rtol 1e-9).
+16-lane blocks, and matches the sweep's plain version on the card
+(prescriptions equal, J0 and J1 at rtol 1e-9); 2,000 lanes spread one
+block to an SM, and the host-pointer entry's parts add up to its wall.
 
 The generic EKF/EKS core, the MATLAB-exact pinv, the regressions and the Rt
 estimator have no hand-written kernel: they run as tensor ops on the card
@@ -38,6 +39,7 @@ tolerances their CPU tests hold them to against the JAX package.
 """
 
 import ctypes
+import time
 
 import numpy as np
 import pytest
@@ -1129,6 +1131,29 @@ def test_newcase_ekf_single_entry_card_equals_the_cpu_build(cuda, epsilon,
                                          device="cpu")
     for k in cpu:
         np.testing.assert_array_equal(card[k], cpu[k], err_msg=k)
+
+
+def test_newcase_ekf_blocks_spread_over_the_card(cuda):
+    """2,000 lanes are 125 blocks, spread over at least 120 SMs (the kernel
+    records each block's SM), and the host-pointer entry's parts lie within
+    its wall."""
+    eps = np.logspace(-8, -2, 2000)
+    args = deploy_sweep_args(eps, T_hist=45, T=60)
+    newcase_ekf_pareto_sweep_native(*args, beta_ekf=0.9)
+    sms = deploy_native.block_sms(len(eps))
+    n_sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert len(sms) == deploy_native.blocks(len(eps)) == 125
+    assert ((sms >= 0) & (sms < n_sms)).all()
+    assert len(set(sms.tolist())) >= min(120, n_sms)
+    d = deploy_native.native_inputs(*(args[i] for i in (0, 1, 3, 5, 6, 7, 8,
+                                                        9, 10)))
+    t0 = time.perf_counter()
+    deploy_native.sweep_host_entry(d, eps, args[2], args[11], 0.9)
+    wall = 1e3 * (time.perf_counter() - t0)
+    phases = deploy_native.host_entry_phases()
+    assert set(phases) == set(deploy_native.HOST_PHASES)
+    assert all(v >= 0 for v in phases.values())
+    assert phases["kernel"] > 0 and sum(phases.values()) <= wall
 
 
 def test_newcase_ekf_card_refuses_what_it_cannot_take(cuda):

@@ -13,9 +13,10 @@ on the CPU, against the JAX package's library and the port's own EKF/EKS.
   prescribed cells.
 - The card source (csrc/newcase_ekf.cu) cannot run here. Its logic, lanes-
   last scratch and host-pointer entries are checked by compiling it with
-  g++ against a header that emulates the few CUDA runtime calls it makes
-  (its launch a loop over blocks and threads, one lane a thread): it
-  equals the CPU build bit for bit. The card itself is held against the
+  g++ against a header that emulates the CUDA runtime calls it makes (its
+  launch runs each block's threads as std::threads meeting at a real
+  barrier, its shared memory one object a block): it equals the CPU build
+  bit for bit. The card itself is held against the
   CPU build by tests/test_torch_cuda.py and chip_smoke.py.
 """
 
@@ -277,6 +278,8 @@ def test_kernel_constants_match_the_wrapper():
     assert int(_constant("newcase_ekf.cuh", "M")) == native.M
     assert int(_constant("newcase_ekf.cu", "MAX_MONITOR")) == \
         native.MONITOR_MAX
+    assert int(_constant("newcase_ekf.cu", "LANES")) == native.LANES
+    assert [native.blocks(e) for e in (1, 16, 17, 2000)] == [1, 1, 2, 125]
     expr = _constant("newcase_ekf.cu", "SCRATCH_PER_LANE_STEP")
     assert re.fullmatch(r"[0-9M*+ ]+", expr)
     assert eval(expr, {"M": native.M}) == native.SCRATCH_PER_LANE_STEP
@@ -293,14 +296,37 @@ def test_kernel_constants_match_the_wrapper():
 
 _EMULATION = r"""
 #pragma once
+#include <barrier>
 #include <cstdlib>
 #include <cstring>
+#include <thread>
+#include <vector>
 #define __global__
 #define __device__
 #define __host__
+#define __forceinline__ inline
 #define __launch_bounds__(x)
+#define __shared__ static
 struct EmuIdx { unsigned x; };
 static thread_local EmuIdx blockIdx, threadIdx;
+static std::barrier<>* emu_barrier;
+inline void __syncthreads() { emu_barrier->arrive_and_wait(); }
+// one block at a time, each of its threads a std::thread
+template <class F>
+void emu_launch(unsigned blocks, unsigned threads, F kernel) {
+    for (unsigned b = 0; b < blocks; ++b) {
+        std::barrier<> bar(threads);
+        emu_barrier = &bar;
+        std::vector<std::thread> block;
+        for (unsigned t = 0; t < threads; ++t)
+            block.emplace_back([&, b, t] {
+                blockIdx.x = b;
+                threadIdx.x = t;
+                kernel();
+            });
+        for (auto& th : block) th.join();
+    }
+}
 typedef void* cudaStream_t;
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
@@ -310,33 +336,38 @@ inline int cudaMalloc(double** p, size_t n) {
 inline int cudaFree(void* p) { std::free(p); return 0; }
 inline int cudaMemcpy(void* d, const void* s, size_t n, cudaMemcpyKind) {
     std::memcpy(d, s, n); return 0; }
+template <class T>
+int cudaMemcpyFromSymbol(void* d, const T& symbol, size_t n) {
+    std::memcpy(d, &symbol, n); return 0; }
 inline int cudaDeviceSynchronize() { return 0; }
 inline int cudaGetLastError() { return 0; }
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
 """
 _LAUNCH = re.compile(r"(\w+)<<<([^,]+), ([^,]+), 0, (\w+)>>>\((\w+)\);")
+# the emulated cases: T days, the prescribed window from EMU_T_HIST
+EMU_T, EMU_T_HIST = 60, 45
 
 
 @pytest.fixture(scope="module")
 def emulated_card(tmp_path_factory):
-    """csrc/newcase_ekf.cu compiled by g++ on the emulation header, its
-    launch a loop of the kernel over every (block, thread), its device
-    memory the host's. Loaded with the card library's signatures."""
+    """csrc/newcase_ekf.cu compiled by g++ on the emulation header: its
+    launch runs the blocks one after another, each block's threads as
+    std::threads meeting at a real barrier for __syncthreads, its shared
+    memory one object, its device memory the host's. Loaded with the card
+    library's signatures."""
     d = tmp_path_factory.mktemp("emulated_card")
     (d / "cuda_runtime.h").write_text(_EMULATION)
     src = (CSRC / "newcase_ekf.cu").read_text()
     src = src.replace('#include "newcase_ekf.cuh"',
                       f'#include "{CSRC / "newcase_ekf.cuh"}"')
     src, n = _LAUNCH.subn(
-        lambda m: (f"for (unsigned b = 0; b < (unsigned)({m[2]}); ++b) "
-                   f"for (unsigned th = 0; th < (unsigned)({m[3]}); ++th) "
-                   f"{{ blockIdx.x = b; threadIdx.x = th; {m[1]}({m[5]}); }}"
-                   f" (void){m[4]};"), src)
+        lambda m: (f"emu_launch((unsigned)({m[2]}), (unsigned)({m[3]}), "
+                   f"[&] {{ {m[1]}({m[5]}); }}); (void){m[4]};"), src)
     assert n == 1
     (d / "emu.cpp").write_text(src)
-    subprocess.run(["g++", *native.GXX_FLAGS, "-I", str(d), str(d / "emu.cpp"),
-                    "-o", str(d / "libemu.so")], check=True,
-                   capture_output=True)
+    subprocess.run(["g++", *native.GXX_FLAGS, "-std=c++20", "-I", str(d),
+                    str(d / "emu.cpp"), "-o", str(d / "libemu.so")],
+                   check=True, capture_output=True)
     lib = ctypes.CDLL(str(d / "libemu.so"))
     for fn, argtypes in native._CARD_SIGNATURES.items():
         getattr(lib, fn).argtypes = argtypes
@@ -345,25 +376,30 @@ def emulated_card(tmp_path_factory):
 
 
 @pytest.mark.parametrize("beta_ekf", [1.0, 0.9])
-def test_card_source_emulated_equals_the_cpu_build(emulated_card, beta_ekf):
+@pytest.mark.parametrize("E", [1, 16, 17, 37])
+def test_card_source_emulated_equals_the_cpu_build(emulated_card, E,
+                                                   beta_ekf):
     """Both host-pointer entries and the device-pointer entry (lanes-last
-    scratch, E not a multiple of the block) of the card source equal the
-    CPU build bit for bit."""
-    eps = np.logspace(-8, 0, 37)
-    args = deploy_sweep_args(eps)
+    scratch) of the card source equal the CPU build bit for bit: one lane,
+    a whole block, a ragged block, several blocks."""
+    eps = np.logspace(-8, 0, E)
+    args = deploy_sweep_args(eps, T_hist=EMU_T_HIST, T=EMU_T)
     ref = newcase_ekf_pareto_sweep_native(*args, beta_ekf=beta_ekf,
                                           device="cpu")
     u, obs, _, params, _, s_init, Ps_init, s_final, Ps_final, Q, R_v, sia = \
         args
     d = native.native_inputs(u, obs, params, s_init, Ps_init, s_final,
                              Ps_final, Q, R_v)
-    T, P, E = d["T"], d["P"], len(eps)
+    T, P = d["T"], d["P"]
     out = dict(U_OPT_SMOOTH=np.zeros((E, T, P)), J0=np.zeros(E),
                J1=np.zeros(E))
     assert emulated_card.newcase_ekf_pareto_sweep_cuda(
-        *native._head(d, T_HIST, eps, E, beta_ekf, 0.995, 21),
+        *native._head(d, EMU_T_HIST, eps, E, beta_ekf, 0.995, 21),
         native._ptr(sia), *(native._ptr(v) for v in out.values())) == 0
     _assert_equal(out, ref)
+    phases = np.full(5, np.nan)
+    assert emulated_card.newcase_ekf_host_phases(native._ptr(phases)) == 0
+    assert (phases >= 0).all()
 
     dev = {k: (torch.from_numpy(v) if isinstance(v, np.ndarray) else v)
            for k, v in d.items()}
@@ -373,19 +409,22 @@ def test_card_source_emulated_equals_the_cpu_build(emulated_card, beta_ekf):
     outs = [torch.full(s, np.nan, dtype=torch.float64)
             for s in ((E, T, P), (E,), (E,), (E, T, 6), (E, T, 6))]
     assert emulated_card.newcase_ekf_sweep_device(
-        *native._head(dev, T_HIST, eps_t, E, beta_ekf, 0.995, 21),
+        *native._head(dev, EMU_T_HIST, eps_t, E, beta_ekf, 0.995, 21),
         sia_t.data_ptr(), scratch.data_ptr(),
         *(o.data_ptr() for o in outs), None) == 0
     for k, o in zip(("U_OPT_SMOOTH", "J0", "J1"), outs):
         np.testing.assert_array_equal(o.numpy(), ref[k], err_msg=k)
-    for ll in (0, E - 1):
+    for ll in sorted({0, E - 1}):
         one = newcase_ekf_optimal_npi_native(
             u, obs, dict(params, epsilon=eps[ll]), s_init, Ps_init, s_final,
             Ps_final, Q, R_v, beta_ekf=beta_ekf, device="cpu")
         np.testing.assert_array_equal(outs[3][ll].numpy(), one["S_PLUS"])
         np.testing.assert_array_equal(outs[4][ll].numpy(), one["S_SMOOTH"])
+    sms = np.zeros(native.blocks(E), dtype=np.int32)
+    assert emulated_card.newcase_ekf_block_sms(native._ptr(sms),
+                                               len(sms)) == 0
 
-    args1 = deploy_inputs(epsilon=0.05)
+    args1 = deploy_inputs(T=EMU_T, T_hist=EMU_T_HIST, epsilon=eps[E // 2])
     ref1 = newcase_ekf_optimal_npi_native(*args1, beta_ekf=beta_ekf,
                                           device="cpu")
     d1 = native.native_inputs(*args1)
