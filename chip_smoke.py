@@ -145,7 +145,27 @@ CUDA toolkit (nvcc). In order, it:
    spills; then the kernel's time (CUDA events around the device-pointer
    entry), the host-pointer entry's wall with its copies and its parts
    (allocation, copies in, kernel, copies out, free), the threaded CPU
-   build's and the plain version's walls beside the float64 bound.
+   build's and the plain version's walls beside the float64 bound;
+17. runs the example drivers (slice 9, epidemicmodeling_torch/examples/,
+   the counterparts of examples/*.py) through their main functions, each
+   in a temporary working directory, on the card (timed, its kernel
+   launches counted: ekf3 and ekf6 for xprize_prescribe,
+   prescribe_from_checkpoint, realistic_data_pipeline and make_figures,
+   ekf3 for forecast_quality, stencil and pairwise for spatial_sims must
+   launch) and again with device="cpu"
+   from the same draws, printing each driver's lines as "example <name> |
+   ..." and then its walls, launches and card-against-CPU readings: the
+   pipeline drivers (float32) by their training (EXAMPLE_TRAIN_BOUND) and
+   by each kernel on its own launches' inputs against the plain version
+   (EXAMPLE_KERNEL_BOUNDS, each mutant read above a bound), the two runs'
+   own flips, costs and fronts printed; the backtest's curves, the spatial
+   fields bit for bit and the pairwise kernel on the agent sim's own
+   positions (its trajectories' gap printed), the studies at
+   SLICE5_TOL / SLICE6_TOL, the LSTMs' first EXAMPLE_LSTM_EPOCHS epochs at
+   LSTM_RMS_TOL, ml_comparison's MAEs at EXAMPLE_ML_TOL (two sizes cut,
+   EXAMPLE_CUTS); then xprize_prescribe's file branch at full width (235
+   regions over its Phase-II window, CSVs under EXAMPLES_DIR) with its
+   launches and output checks, and a "slice 9 (examples): ..." summary.
 
 Every failed check raises, so the exit code is non-zero. Only when all
 phases pass does it print the kernel JSON line, the card's name and power
@@ -157,7 +177,8 @@ ekf3's on train_npi_prescriptor's and ekf6's on prescribe_from_checkpoint's,
 and every EKS, stencil, pairwise and roofline kernel's launches on the
 5 x 1 mesh run (mesh_launches), all measured in the same run; newcase_ekf's
 entry (not a TPU kernel) adds the CPU build's and the host entry's walls,
-the host entry's parts, the geometry and the ptxas lines;
+the host entry's parts, the geometry and the ptxas lines; each entry's
+examples_launches gives its launches per example driver on the card;
 roofline's entry is its copy kernel, launched by
 phase 9 alone (no path of the system runs it).
 """
@@ -166,11 +187,15 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import importlib
 import importlib.util
+import io
 import json
 import os
 import shutil
 import subprocess
+import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -206,6 +231,7 @@ from epidemicmodeling_torch.deploy import (newcase_ekf_optimal_npi_native,
                                            newcase_ekf_pareto_sweep_native,
                                            pareto_sweep_plain)
 from epidemicmodeling_torch.deploy import native as deploy_native
+from epidemicmodeling_torch.examples import NAMES as EXAMPLE_NAMES
 from epidemicmodeling_torch.ml import (LSTMForecaster, arx_fit_predict,
                                        lagged_features, long_weekend_feature,
                                        ridge_regression, rollout_forecast,
@@ -505,6 +531,89 @@ DEPLOY_CPU_RTOL, DEPLOY_PLAIN_RTOL = 1e-12, 1e-9
 DEPLOY_MIN_SMS = 120
 # the card's float64 peak outside the tensor cores (H100 SXM data sheet)
 PEAK_F64_PER_S = 34e12
+# slice 9: the example drivers (epidemicmodeling_torch/examples/), each
+# through its main on the card (device=None) and again with device="cpu"
+# from the same draws (the drivers draw on CPU generators), each in a
+# temporary working directory. The kernels each driver must launch on the
+# card; the cuts that keep the phase near a minute and a half (PERF.md):
+# the studies, one Python loop of small launches a step on the
+# card, at smaller sizes (the SEIRP scenarios at dt 1 for 0.5, the
+# 100-unit LSTM 60 epochs for 250, ml_comparison's SVRs 200 Adam steps for
+# 2,000 and its LSTMs 50 epochs for 150); the pipeline drivers run at
+# their own sizes and dtype (float32), the XPRIZE driver's Phase-II run at
+# 235 regions on CSVs from 2020-03-15 through 2021-08-29 (its fixed
+# window) under EXAMPLES_DIR.
+EXAMPLE_KERNELS = {"xprize_prescribe": ("ekf3", "ekf6"),
+                   "prescribe_from_checkpoint": ("ekf3", "ekf6"),
+                   "forecast_quality": ("ekf3",),
+                   "realistic_data_pipeline": ("ekf3", "ekf6"),
+                   "spatial_sims": ("stencil", "pairwise"),
+                   "make_figures": ("ekf3", "ekf6")}
+EXAMPLE_ARGS = {"xprize_prescribe": (["xprize_prescribe", "--synthetic"],),
+                "prescribe_from_checkpoint": (["prescribe_from_checkpoint"],)}
+EXAMPLE_CUTS = {"seirp_scenarios": dict(dt=1.0),
+                "lstm_forecast": dict(num_epochs=60, lr_drop_period=30),
+                "ml_comparison": dict(svr_steps=200, lstm_epochs=50)}
+# the CPU runs of prescribe_from_checkpoint sweep its 2,000 epsilons in
+# one chunk, not 125 of 16: the plain ekf6 steps all of a chunk's lanes
+# at once (~100 s less); a lane's formulas do not change, its float32
+# rounding may (the CPU vectorizes a wider batch otherwise)
+EXAMPLE_CPU_CHUNK = {"prescribe_from_checkpoint": 2000}
+# the drivers whose sweep goes through core.pareto_prescribe
+EXAMPLE_PIPELINES = ("xprize_prescribe", "prescribe_from_checkpoint",
+                     "realistic_data_pipeline", "make_figures")
+EXAMPLES_DIR = Path(__file__).resolve().parent / "build" / \
+    "chip_smoke_examples"
+PHASE2_START, PHASE2_DAYS, PHASE2_HORIZON = "2020-03-15", 533, 92
+# card against CPU for the pipeline drivers (float32). Held:
+# - the training (ekf3 on the card, its plain version on the CPU, each
+#   side training on the same data): the trained a2 and the historic
+#   states s_hist, scaled_err at most EXAMPLE_TRAIN_BOUND;
+# - each kernel on the inputs of its own launches in the card run (all of
+#   a driver's launches of one kernel and T joined along the lanes), run
+#   again through the plain version on the card: ekf3 at EKF3_BOUNDS;
+#   ekf6 at EKF6_FINITE's bounds on its forward filter S_PLUS, its
+#   smoothed epidemic states (S_SMOOTH's first three rows) and the share
+#   of prescribed cells that differ, with no cell finite on one side
+#   only. The smoother's two (EXAMPLE_SPREAD_HELD) are held at the larger
+#   of that bound and EXAMPLE_SPREAD_FACTOR times the distance between
+#   the plain version on the card and on the CPU on the same inputs: on
+#   these inputs two correct float32 runs prescribe differently in 5-14%
+#   of the cells, and in realistic_data_pipeline their smoothed states
+#   part by 0.42 (PERF.md). The smoothed costates (1e3-1e5 apart,
+#   scaled, between the plain version's two runs) are printed.
+# Each bound must sit below what a fault reads, computed in the run: the
+# historic states one day off, a1 in place of a2 (a run that skipped the
+# second ekf3 round); the plain outputs one region over, one epsilon
+# over (ekf6) or one day over (ekf3); each mutant must exceed a bound on
+# at least one held measure. The two independent runs' own readings
+# (flips in each band of the epsilon grid, costs over the region's
+# largest, the front gap) are printed.
+EXAMPLE_TRAIN_BOUND = dict(a2=1e-4, s_hist=1e-4)
+EXAMPLE_KERNEL_BOUNDS = {
+    "ekf3": EKF3_BOUNDS,
+    "ekf6": {"s_plus": EKF6_FINITE["s_plus"],
+             "s_plus_nonfinite_mismatch": 0.0,
+             "s_smooth_states": EKF6_FINITE["s_smooth"],
+             "s_smooth_states_nonfinite_mismatch": 0.0,
+             "u_diff": EKF6_FINITE["u_diff"]}}
+EXAMPLE_SPREAD_HELD, EXAMPLE_SPREAD_FACTOR = ("s_smooth_states", "u_diff"), 2
+# the backtest's median error curves (% of truth), float32
+EXAMPLE_BACKTEST_TOL = dict(rtol=1e-3, atol=1e-3)
+# the agent sim (150 agents): its pairwise launches held on the sim's own
+# positions (the inputs to these steps) against the plain version row by
+# row at PAIRWISE_ROW_BOUND, each PAIRWISE_MUTANTS above it; the card's
+# and the CPU's trajectories part as a chaotic system's do (by an e-fold
+# every ~7 steps), so their gap is printed, not held
+EXAMPLE_SIM_STEPS = (0, 99, 249, 498)
+EXAMPLE_LSTM_EPOCHS = 20
+# ml_comparison's float64 MAEs: ridge and ARX relative, the SVRs (held by
+# their predictions within 1e-6 of the target's scale in slice 6; the growth
+# rate lambda is O(0.1) a day) absolute
+EXAMPLE_ML_TOL = {"ridge": dict(rtol=1e-6, atol=0.0),
+                  "arx": dict(rtol=1e-8, atol=0.0),
+                  "svr_linear": dict(rtol=0.0, atol=1e-6),
+                  "svr_rbf": dict(rtol=0.0, atol=1e-6)}
 
 
 def log(msg: str) -> None:
@@ -3574,15 +3683,467 @@ def deploy_phase(device):
                 bit_for_bit=bits, ptxas=ptxas, **geometry)
 
 
+def run_example(name, device, args=None, record=True, **kw):
+    """One run of an example driver's main on ``device`` (with ``args``,
+    else EXAMPLE_ARGS's, and EXAMPLE_CUTS's sizes) in a fresh temporary
+    working directory: (its returned dict, its wall in s, the kernel
+    launches, the files it wrote, its printed lines, a record of its
+    calls). The record (with ``record``): "sweeps", the arguments and
+    result of each core.pareto_prescribe call; on a card also "launches",
+    (kernel, arguments, keywords, outputs) of each ekf3 / ekf6 wrapper
+    call."""
+    mod = importlib.import_module(f"epidemicmodeling_torch.examples.{name}")
+    chunk = EXAMPLE_CPU_CHUNK.get(name) if device.type == "cpu" else None
+    rec = dict(sweeps=[], launches=[])
+
+    def spy(real, log_to, tag=None):
+        def call(*a, **k):
+            out = real(*a, **k)
+            log_to.append((a, k, out) if tag is None else (tag, a, k, out))
+            return out
+        return call
+
+    # the names the pipelines call them by (the package binds the
+    # train_predict_prescribe module's name to its function; the lanes
+    # glue looks the wrappers up in their modules at each call)
+    users = (sys.modules[
+        "epidemicmodeling_torch.pipelines.train_predict_prescribe"],
+        prescribe_mod)
+    real_sweep, real3, real6 = (core.pareto_prescribe, ekf3_kernel.ekf3,
+                                ekf6_kernel.ekf6)
+    buf = io.StringIO()
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp), \
+            contextlib.redirect_stdout(buf):
+        if record:
+            for m in users:
+                m.pareto_prescribe = spy(real_sweep, rec["sweeps"])
+            if device.type == "cuda":
+                ekf3_kernel.ekf3 = spy(real3, rec["launches"], "ekf3")
+                ekf6_kernel.ekf6 = spy(real6, rec["launches"], "ekf6")
+        if chunk:
+            mod.PipelineConfig = lambda **c: PipelineConfig(
+                **dict(c, pareto_chunk=chunk))
+        try:
+            reset_launches()
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            args = EXAMPLE_ARGS.get(name, ()) if args is None else args
+            out = mod.main(*args, device=device,
+                           **{**EXAMPLE_CUTS.get(name, {}), **kw})
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            n = read_launches()
+        finally:
+            for m in users:
+                m.pareto_prescribe = real_sweep
+            ekf3_kernel.ekf3, ekf6_kernel.ekf6 = real3, real6
+            mod.PipelineConfig = PipelineConfig
+        files = sorted(str(p.relative_to(tmp))
+                       for p in Path(tmp).rglob("*") if p.is_file())
+    return out, wall, n, files, buf.getvalue().splitlines(), rec
+
+
+def region_scale(J):
+    """Each region's largest |cost| over epsilon (1 where all are 0)."""
+    s = J.double().cpu().abs().amax(dim=0)
+    return torch.where(s > 0, s, torch.ones_like(s))
+
+
+def front_gap(J0a, J1a, fa, J0b, J1b, fb):
+    """The largest margin, over the regions and both directions, by which
+    a point of one front is dominated by a point of the other, in units of
+    the region's largest costs (<= 0: neither front dominates the other
+    anywhere)."""
+    s0, s1 = region_scale(J0b), region_scale(J1b)
+    gap = -float("inf")
+    for (x0, x1, fx), (y0, y1, fy) in (((J0a, J1a, fa), (J0b, J1b, fb)),
+                                       ((J0b, J1b, fb), (J0a, J1a, fa))):
+        x0, x1, y0, y1 = (v.double().cpu() for v in (x0, x1, y0, y1))
+        fx, fy = fx.cpu(), fy.cpu()
+        for r in range(x0.shape[1]):
+            a0, a1 = x0[fx[:, r], r], x1[fx[:, r], r]
+            b0, b1 = y0[fy[:, r], r], y1[fy[:, r], r]
+            m = torch.minimum((a0[:, None] - b0[None]) / s0[r],
+                              (a1[:, None] - b1[None]) / s1[r])
+            gap = max(gap, float(m.max()))
+    return gap
+
+
+def sweep_diffs(pc, pp):
+    """Two sweeps' pareto dicts, epsilon by epsilon: the share of
+    prescribed cells that differ (over all epsilons and in each band of
+    the grid, its log half and its linear half) and the J0 and J1
+    differences over the region's largest cost (median, 90th percentile,
+    largest)."""
+    E = pc["J0"].shape[0]
+    d = (pc["u_prescribed"][:, :, :-1].cpu()
+         != pp["u_prescribed"][:, :, :-1].cpu())
+    bands = ((0, E // 2), (E // 2, E)) if E > 1 else ((0, 1),)
+    rel = torch.cat([(torch.abs(pc[k].double().cpu() - pp[k].double().cpu())
+                      / region_scale(pp[k])).flatten() for k in ("J0", "J1")])
+    return dict(flip=float(d.double().mean()),
+                flips=[float(d[a:b].double().mean()) for a, b in bands],
+                cost=float(rel.max()), cost_med=float(rel.median()),
+                cost_p90=float(torch.quantile(rel, 0.9)))
+
+
+def lane_groups(launches):
+    """A run's recorded ekf3 / ekf6 launches grouped by (kernel, T,
+    keywords), each group's arguments and outputs joined along the lanes
+    (the last axis; no formula couples two lanes):
+    [(kernel, args, keywords, outputs, launches)]."""
+    groups = {}
+    for kn, a, k, o in launches:
+        key = (kn, a[0].shape[0], tuple(sorted(k.items())))
+        groups.setdefault(key, []).append((a, o))
+    cat = lambda xs: torch.cat(xs, dim=-1)
+    return [(kn, [cat([a[i] for a, _ in g]) for i in range(len(g[0][0]))],
+             dict(kw), [cat([o[i] for _, o in g]) for i in range(3)],
+             len(g)) for (kn, _, kw), g in groups.items()]
+
+
+def ekf_lane_errs(kn, got, ref, t_hist):
+    """ekf3: the scaled errors of S_PLUS and S_SMOOTH (EKF3_BOUNDS). ekf6:
+    over the cells finite in both, the scaled errors of S_PLUS and of the
+    smoothed epidemic states (S_SMOOTH's first three rows) and the shares
+    of cells finite on one side only; for the record, the smoothed
+    costates' error and the share of prescribed cells (rows t_hist ..
+    T-2) that differ."""
+    if kn == "ekf3":
+        return dict(s_plus=scaled_err(got[1], ref[1]),
+                    s_smooth=scaled_err(got[0], ref[0]))
+    e = {}
+    for n, a, b in (("s_plus", got[2], ref[2]),
+                    ("s_smooth_states", got[0][:, :3], ref[0][:, :3]),
+                    ("s_smooth_costates", got[0][:, 3:], ref[0][:, 3:])):
+        e[n], e[n + "_nonfinite_mismatch"] = masked_err(a, b)
+    e["u_diff"] = float((got[1][t_hist:-1] != ref[1][t_hist:-1])
+                        .double().mean())
+    return e
+
+
+def kernel_lane_holds(name, launches, t_hist, R, fails):
+    """Each of a card run's ekf3 / ekf6 launch groups (lane_groups)
+    against the plain version on the same inputs on the card, held at
+    EXAMPLE_KERNEL_BOUNDS; each mutant must exceed a bound. For ekf6 the
+    plain version also runs on the CPU: its distance from the one on the
+    card (two correct float32 runs) widens the smoother's bounds
+    (EXAMPLE_SPREAD_HELD). Returns the readings."""
+    out = []
+    for kn, args, kw, got, calls in lane_groups(launches):
+        plain = KERNELS[kn]["plain"]
+        ref = plain(*args, **kw)
+        e = ekf_lane_errs(kn, got, ref, t_hist)
+        bounds = dict(EXAMPLE_KERNEL_BOUNDS[kn])
+        spread = None
+        if kn == "ekf6":
+            cpu_ref = plain(*(a.cpu() for a in args), **kw)
+            spread = ekf_lane_errs(
+                kn, ref, [r.to(ref[0].device) for r in cpu_ref], t_hist)
+            for k in EXAMPLE_SPREAD_HELD:
+                bounds[k] = max(bounds[k], EXAMPLE_SPREAD_FACTOR * spread[k])
+        T, B = args[0].shape[0], args[0].shape[-1]
+        tag = f"{kn} T={T} B={B} ({calls} launches)"
+        for k, b in bounds.items():
+            if not e[k] <= b:
+                fails.append(f"{name}: {tag} {k} {e[k]:.3e} > {b}")
+        # a launch on the wrong lanes or days: one region over, one
+        # epsilon over (ekf6, lane = e * R + r), one day over (ekf3)
+        shift = {"regions_rolled": lambda x: torch.roll(x, 1, dims=-1)}
+        if kn == "ekf6" and B > R:
+            shift["epsilon_off"] = lambda x: torch.roll(x, R, dims=-1)
+        if kn == "ekf3":
+            shift["day_off"] = lambda x: torch.roll(x, 1, dims=0)
+        mutants = {}
+        for m, f in shift.items():
+            mutants[m] = {k: v for k, v in ekf_lane_errs(
+                kn, got, [f(r) for r in ref], t_hist).items() if k in bounds}
+            if not any(mutants[m][k] > b for k, b in bounds.items()):
+                fails.append(f"{name}: {tag} mutant {m} reads "
+                             f"{mutants[m]}, within the bounds {bounds}")
+        g = dict(kernel=tag, errs=e, bounds=bounds, mutants=mutants)
+        if spread is not None:
+            g["plain_card_vs_cpu"] = spread
+        out.append(g)
+    return out
+
+
+def pipeline_grades(name, card, cpu, rec_card, rec_cpu, fails):
+    """A pipeline driver's card run against its CPU run: holds the
+    training (EXAMPLE_TRAIN_BOUND) and each kernel on its own launches'
+    inputs (kernel_lane_holds), checks that every mutant exceeds a bound,
+    and returns the readings, the two runs' independent ones included."""
+    sw_c, sw_p = rec_card["sweeps"], rec_cpu["sweeps"]
+    check(len(sw_c) == 1 and len(sw_p) == 1,
+          f"{name}: {len(sw_c)} / {len(sw_p)} sweeps, expected one a run")
+    a_c, _, pc = sw_c[0]
+    a_p, _, pp = sw_p[0]
+    # pareto_prescribe(batch_full, trained, init, s_hist, eps, weights,
+    # mins, maxes, T_hist, ...)
+    tr_c, tr_p, sh_c, sh_p = a_c[1], a_p[1], a_c[3], a_p[3]
+    train = dict(a2=scaled_err(tr_c.a2.cpu(), tr_p.a2.cpu()),
+                 s_hist=scaled_err(sh_c.cpu(), sh_p.cpu()))
+    train_mutants = dict(
+        s_hist_day_off=dict(s_hist=scaled_err(sh_c[:, 1:].cpu(),
+                                              sh_p[:, :-1].cpu())),
+        a1_for_a2=dict(a2=scaled_err(tr_c.a1.cpu(), tr_p.a2.cpu())))
+    for k, b in EXAMPLE_TRAIN_BOUND.items():
+        if not train[k] <= b:
+            fails.append(f"{name}: {k} {train[k]:.3e} > {b}")
+    for m, got in train_mutants.items():
+        if not any(got[k] > b for k, b in EXAMPLE_TRAIN_BOUND.items()
+                   if k in got):
+            fails.append(f"{name}: mutant {m} reads {got}, within the "
+                         f"bounds {EXAMPLE_TRAIN_BOUND}")
+    kernels = kernel_lane_holds(name, rec_card["launches"], a_c[8],
+                                tr_c.a2.shape[0], fails)
+    fc, fp = card["front"], cpu["front"]
+    runs = sweep_diffs(pc, pp)
+    runs.update(front_gap=front_gap(pc["J0"], pc["J1"], fc, pp["J0"],
+                                    pp["J1"], fp),
+                front_sizes=(fc.sum(0).tolist(), fp.sum(0).tolist()))
+    return dict(train=train, train_mutants=train_mutants, kernels=kernels,
+                runs=runs)
+
+
+def pipeline_front(name, out):
+    """A pipeline driver's front mask (E, R) on the CPU."""
+    if name == "prescribe_from_checkpoint":
+        return torch.as_tensor(out["front"])
+    return out["result"].pareto_front.cpu()
+
+
+def sim_pairwise_holds(p, hold):
+    """The pairwise wrapper on the spatial driver's own agent positions
+    (p[t], the input to step t + 1, for t in EXAMPLE_SIM_STEPS) against
+    its plain version on the same inputs, row by row; ``hold`` records a
+    failure. Returns {step: row_err}."""
+    cfg = PopulationSimConfig(n_subjects=p.shape[1])
+    _, obs_np = default_environment(cfg)
+    obs = torch.tensor(obs_np, dtype=F32, device=p.device)
+    rows = torch.arange(p.shape[1], device=p.device)
+    out = {}
+    for t in EXAMPLE_SIM_STEPS:
+        pos = p[t].to(F32).contiguous()
+        got = pairwise_kernel.social_forces(pos, obs, cfg)
+        ref = pairwise_kernel.social_forces_plain(pos, obs, cfg)
+        m = hold_pairwise(f"spatial_sims step {t + 1}", got, ref, pos, obs,
+                          cfg, rows)
+        hold(m["row_err"] <= PAIRWISE_ROW_BOUND,
+             f"pairwise at step {t + 1}: row_err {m['row_err']:.3e} > "
+             f"{PAIRWISE_ROW_BOUND}")
+        for mu, v in m["mutants"].items():
+            hold(v > PAIRWISE_ROW_BOUND,
+                 f"pairwise at step {t + 1}: mutant {mu} reads {v:.3e} <= "
+                 f"{PAIRWISE_ROW_BOUND}")
+        out[t + 1] = m["row_err"]
+    return out
+
+
+def example_grades(name, card, cpu, fails, recs=None):
+    """Hold one driver's card run against its CPU run; appends to
+    ``fails``. ``recs``: the two runs' records (run_example). Returns the
+    readings to print."""
+    def hold(ok, what):
+        if not ok:
+            fails.append(f"{name}: {what}")
+
+    if name in EXAMPLE_PIPELINES:
+        g = pipeline_grades(name, dict(front=pipeline_front(name, card)),
+                            dict(front=pipeline_front(name, cpu)),
+                            *recs, fails)
+        if name == "make_figures":
+            g["i_opt"] = (card["i_opt"], cpu["i_opt"])
+        if name == "realistic_data_pipeline":
+            g["counts"] = (card["nan_npis"], card["neg_days"])
+            hold((card["nan_frac"], card["neg_days"], card["nan_npis"])
+                 == (cpu["nan_frac"], cpu["neg_days"], cpu["nan_npis"]),
+                 "artefact counts differ")
+        return g
+    if name == "forecast_quality":
+        r = close_ratio(torch.as_tensor(card["median_error_smooth"]),
+                        torch.as_tensor(cpu["median_error_smooth"]),
+                        EXAMPLE_BACKTEST_TOL)
+        hold(r <= 1.0, f"median error curves {r:.3e} of the bound")
+        return dict(curves=r)
+    if name == "spatial_sims":
+        same = lambda k: bit_equal(card[k].cpu(), cpu[k].cpu())
+        g = dict(diffusion_bits=same("c4") and same("c8"),
+                 walker_bits=same("walk_field") and same("walk_traj"))
+        hold(g["diffusion_bits"] and g["walker_bits"],
+             "diffusion or walker fields not bit for bit")
+        sc, sp = card["sim"], cpu["sim"]
+        g["pairwise"] = sim_pairwise_holds(sc.p, hold)
+        dp = (sc.p.double().cpu() - sp.p.double().cpu()).abs().amax((1, 2))
+        dpva = torch.stack([(getattr(sc, f).double().cpu()
+                             - getattr(sp, f).double().cpu()).abs()
+                            .amax((1, 2)) for f in ("p", "v", "a")]).amax(0)
+        part = torch.nonzero(dp > 1e-3)
+        g.update(traj_gap_at_10_20_30=[
+            float(dpva[k - 1]) for k in (10, 20, 30) if k <= len(dpva)],
+                 traj_parts_at=int(part[0]) if len(part)
+                 else None, traj_final_dp=float(dp[-1]),
+                 field_totals=(card["field_total"], cpu["field_total"]))
+        hold(all(np.isfinite(card[k]) for k in ("mean_speed",
+                                                "field_total")),
+             "sim not finite")
+        return g
+    if name == "seirp_scenarios":
+        a = np.array([v for s in card["scenarios"].values() for v in s]
+                     + [card["saturated"], card["unlimited"]])
+        b = np.array([v for s in cpu["scenarios"].values() for v in s]
+                     + [cpu["saturated"], cpu["unlimited"]])
+        r = close_ratio(torch.as_tensor(a), torch.as_tensor(b), SLICE6_TOL)
+        hold(r <= 1.0 and card["rank"] == cpu["rank"] == 4,
+             f"{r:.3e} of the bound, ranks {card['rank']}/{cpu['rank']}")
+        return dict(values=r, bits=bool(np.array_equal(a, b)))
+    if name == "rt_comparison":
+        g = {k: close_ratio(torch.as_tensor(card[k]),
+                            torch.as_tensor(cpu[k]), SLICE5_TOL)
+             for k in ("gen_ratios", "log_lin", "ekf")}
+        ls = torch.as_tensor(cpu["nonlin_ls"])
+        g["nonlin_ls"] = close_ratio(torch.as_tensor(card["nonlin_ls"]), ls,
+                                     dict(rtol=0.0, atol=LM_RTOL * float(
+                                         ls.abs().max())))
+        hold(max(g.values()) <= 1.0, f"{g}")
+        return g
+    if name in ("lstm_forecast", "direct_newcases_lstm"):
+        lc, lp = card["losses"], cpu["losses"]
+        g = dict(rms=rms_loss_ratio(lc[:EXAMPLE_LSTM_EPOCHS],
+                                    lp[:EXAMPLE_LSTM_EPOCHS]),
+                 rms_all=rms_loss_ratio(lc, lp),
+                 final_loss=(lc[-1], lp[-1]))
+        hold(g["rms"] <= 1.0, f"first {EXAMPLE_LSTM_EPOCHS} epochs "
+                              f"{g['rms']:.3e} of the bound")
+        hold(lc[-1] < lc[0] and np.isfinite(lc[-1]), "loss did not fall")
+        if name == "lstm_forecast":
+            g["mape"] = (card["mape"], cpu["mape"])
+            hold(bool(np.isfinite(card["forecast"]).all()),
+                 "forecast not finite")
+        else:
+            g["mae"] = (card["mae"], cpu["mae"])
+            hold(np.isfinite(card["mae"]), "MAE not finite")
+        return g
+    if name == "ml_comparison":
+        g = {}
+        for m, tol in EXAMPLE_ML_TOL.items():
+            g[m] = close_ratio(
+                torch.tensor([r[m] for r in card["mae"].values()]),
+                torch.tensor([r[m] for r in cpu["mae"].values()]), tol)
+        g["lstm_rms"] = max(rms_loss_ratio(
+            card["lstm_losses"][n][:EXAMPLE_LSTM_EPOCHS],
+            cpu["lstm_losses"][n][:EXAMPLE_LSTM_EPOCHS])
+            for n in card["lstm_losses"])
+        g["lstm_mae"] = (card["mean_mae"]["lstm"], cpu["mean_mae"]["lstm"])
+        g["best"] = (card["best"], cpu["best"])
+        hold(max(v for k, v in g.items() if not isinstance(v, tuple))
+             <= 1.0, f"{g}")
+        return g
+    raise KeyError(name)
+
+
+def write_phase2_csvs():
+    """A 235-region synthetic OxCGRT set over the XPRIZE driver's Phase-II
+    window (2020-03-15 .. 2021-08-29) under EXAMPLES_DIR. Returns the
+    three paths."""
+    shutil.rmtree(EXAMPLES_DIR, ignore_errors=True)
+    EXAMPLES_DIR.mkdir(parents=True)
+    frame, pops, _ = synthetic_oxford_frame(R_REGIONS, PHASE2_DAYS,
+                                            PHASE2_START, seed=0)
+    files = write_oxford_csvs(EXAMPLES_DIR, frame, pops)
+    return [files["data"], files["geos"], files["populations"]]
+
+
+def phase2_checks(out, files, n, fails):
+    """The full-width XPRIZE run's outputs: its kernels launched, 235
+    regions, bang-bang prescriptions, finite costs, non-empty fronts and
+    the prescriptions CSV's rows."""
+    res = out["result"]
+    u = res.pareto["u_prescribed"]
+    hi = to_tensor(NPI_MAXES_DEFAULT, u.dtype, u.device)
+    ok = dict(
+        launches=n["ekf3"] > 0 and n["ekf6"] > 0,
+        regions=out["n_regions"] == R_REGIONS
+        and tuple(u.shape[1:]) == (R_REGIONS, PHASE2_HORIZON, 12),
+        bang_bang=bool(((u == 0) | (u == hi)).all()),
+        finite=bool(torch.isfinite(res.pareto["J0"]).all()
+                    and torch.isfinite(res.pareto["J1"]).all()),
+        fronts=int(res.pareto_front.sum(0).min()) >= 1,
+        files=files == ["prescriptions.csv", "trained_params.npz"])
+    fails.extend(f"xprize_prescribe (Phase II): {k}" for k, v in ok.items()
+                 if not v)
+    return ok
+
+
+def examples_phase(device):
+    """Slice 9: each example driver through its main on the card, timed,
+    with its kernel launches, held against the same driver on the CPU;
+    then the XPRIZE driver at full width (235 regions over its Phase-II
+    window). Returns {driver: launches on the card}."""
+    card = card_line()
+    t0 = time.perf_counter()
+    fails, launches = [], {}
+    # the card machine may have no matplotlib: make_figures then runs
+    # everything but the drawing, on both sides
+    extra = {"make_figures": dict(
+        plot=importlib.util.find_spec("matplotlib") is not None)}
+    for name in EXAMPLE_NAMES:
+        kw = extra.get(name, {})
+        c, wall, n, files, lines, rec_c = run_example(name, device, **kw)
+        p, cpu_wall, _, cpu_files, _, rec_p = run_example(
+            name, torch.device("cpu"), **kw)
+        launches[name] = {k: v for k, v in n.items() if v}
+        for line in lines:
+            log(f"example {name} | {line}")
+        if files != cpu_files:
+            fails.append(f"{name}: files {files} vs {cpu_files}")
+        for k in EXAMPLE_KERNELS.get(name, ()):
+            if n[k] <= 0:
+                fails.append(f"{name}: {k} never launched")
+        g = example_grades(name, c, p, fails, (rec_c, rec_p))
+        del rec_c, rec_p
+        cut = EXAMPLE_CUTS.get(name)
+        log(f"example {name}: card wall={wall:.3f}s CPU wall={cpu_wall:.3f}s"
+            f" launches={launches[name]}"
+            + (f" (cut: {cut})" if cut else "") + f" files={files} "
+            f"card vs CPU: {g} [{card}]")
+        del c, p
+    # the XPRIZE driver's file branch at full width
+    files = write_phase2_csvs()
+    out, wall, n, written, lines, _ = run_example(
+        "xprize_prescribe", device, args=(["xprize_prescribe", *files],),
+        record=False)
+    tag = "xprize_prescribe (Phase II)"
+    launches[tag] = {k: v for k, v in n.items() if v}
+    for line in lines:
+        log(f"example {tag} | {line}")
+    ok = phase2_checks(out, written, n, fails)
+    stages = {k: round(v, 3) for k, v in out["result"].stage_seconds.items()}
+    log(f"example {tag}: {R_REGIONS} regions x "
+        f"{PHASE2_DAYS - PHASE2_HORIZON}+{PHASE2_HORIZON} days, 250 eps: "
+        f"card wall={wall:.3f}s stages={stages} launches={launches[tag]} "
+        f"checks={ok} [{card}]")
+    del out
+    log(f"slice 9 (examples): {time.perf_counter() - t0:.1f}s, "
+        f"{len(EXAMPLE_NAMES)} drivers, card kernel launches {launches} "
+        f"[{card}]")
+    check(not fails, "examples: " + "; ".join(fails))
+    return launches
+
+
 def kernel_entries(measured, xprize_launches, stencil_cases, sim_launches,
                    pairwise_cases, cli_launches, backtest, slice5_launches,
-                   roofline, mesh_launches, deploy):
+                   roofline, mesh_launches, deploy, example_launches):
     """One entry per kernel for the JSON line: its launches on its path's
     warm run, its largest error against the plain version, and kernel,
     plain-version, bound and library times at its largest timed shape
     (both versions timed); mesh_launches, its launches on the warm 5 x 1
     mesh XPRIZE run (MESH_SLOTS slots of the card, mesh_slots; not for
-    newcase_ekf, which no mesh runs); deploy, slice 8's entry. Fails if a
+    newcase_ekf, which no mesh runs); deploy, slice 8's entry;
+    example_launches, slice 9's launches per driver on the card
+    (examples_launches, the drivers that launched the kernel). Fails if a
     kernel never launched on its path."""
     kernels = []
     for name in ("ekf3", "ekf6"):
@@ -3645,7 +4206,10 @@ def kernel_entries(measured, xprize_launches, stencil_cases, sim_launches,
                        if f not in ("run", "plain")}, **k,
                     **({} if name == "newcase_ekf" else dict(
                         mesh_launches=mesh_launches[name],
-                        mesh_slots=MESH_SLOTS)))
+                        mesh_slots=MESH_SLOTS)),
+                    examples_launches={d: n[name] for d, n in
+                                       example_launches.items()
+                                       if n.get(name)})
                for name, k in zip(KERNELS, kernels)]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} never launched on its path")
@@ -3723,10 +4287,13 @@ def main():
     # the native deployment artefact's card build (slice 8)
     deploy = deploy_phase(device)
 
+    # the example drivers (slice 9)
+    example_launches = examples_phase(device)
+
     kernels = kernel_entries(measured, xprize_launches, stencil_cases,
                              sim_launches, pairwise_cases, cli_launches,
                              backtest, slice5_launches, roofline,
-                             mesh_launches, deploy)
+                             mesh_launches, deploy, example_launches)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -185,6 +185,7 @@ def train_predict_prescribe(
     trained=None,
     mesh=None,
     device=None,
+    u_random=None,
 ) -> TrainPredictPrescribeResult:
     """Drop-in equivalent of Tools/TrainPredictPrescribeNPI.m:1 with the same
     argument intent (dates, files, NPI config, epsilon sweep, weights): load
@@ -193,10 +194,11 @@ def train_predict_prescribe(
     else .npz) when given.
 
     generator seeds what is random (the Monte-Carlo schedules, stochastic
-    forecasts), taking the JAX package's ``key``'s place. device: the CUDA
-    card unless told otherwise (device="cpu"); resolved before any file is
-    read. mesh: optional ("dp", "ep") parallel.Mesh (see run_pipeline); the
-    device is then its lead slot."""
+    forecasts), taking the JAX package's ``key``'s place; u_random (N, H,
+    P) gives the Monte-Carlo schedules instead (see run_pipeline). device:
+    the CUDA card unless told otherwise (device="cpu"); resolved before any
+    file is read. mesh: optional ("dp", "ep") parallel.Mesh (see
+    run_pipeline); the device is then its lead slot."""
     device = resolve_device(mesh_device(mesh, device))
     npi_columns = list(npi_columns or OXFORD_NPI_COLUMNS)
     P = len(npi_columns)
@@ -247,7 +249,8 @@ def train_predict_prescribe(
     result = run_pipeline(batch_train, batch_full, actual_npis, T_hist,
                           weights, epsilon_values, npi_mins, npi_maxes,
                           num_regression_days, cfg, generator, dtype,
-                          trained=trained, device=device, mesh=mesh)
+                          trained=trained, device=device, u_random=u_random,
+                          mesh=mesh)
     result.stage_seconds["read_csv"] = read_s
     if trained_params_file:
         from .checkpoint import save_checkpoint
