@@ -280,6 +280,7 @@ from epidemicmodeling_torch.spatial import (PopulationSimConfig,
 from epidemicmodeling_torch.spatial.agents import default_environment
 from epidemicmodeling_torch.spatial.walkers import walking_sources_sim
 from epidemicmodeling_torch.utils.dates import date_range_days
+from epidemicmodeling_torch.utils.profiling import recording
 from tests._torch_helpers import (deploy_history, make_inputs, masked_err,
                                   packed_args, scaled_err)
 
@@ -987,19 +988,19 @@ def device_time(run, wall):
 
 
 def nnls_counts(device, bt):
-    """Iterations of the batched NNLS on the round-2 regression of the
-    XPRIZE-size train stage (each iteration is one host sync)."""
+    """Iterations and host syncs of the batched NNLS on the round-2
+    regression of the XPRIZE-size train stage (the recording's counters)."""
     cfg = PipelineConfig(backend="pallas", smoother_gain="solve")
     out = train_regions(bt, MINS, NPI_MAXES_DEFAULT, T_HIST, cfg, dtype=F32,
                         device=device)
     bt_d, _, _ = device_batch(bt, F32, device)
     x_win = to_tensor(NPI_MAXES_DEFAULT, F32, device) - bt_d.npis
-    counts = {}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    nnls_with_intercept(x_win, out.s_smooth_round2[:, :, 2], counts=counts)
+    with recording() as rec:
+        nnls_with_intercept(x_win, out.s_smooth_round2[:, :, 2])
     torch.cuda.synchronize()
-    log(f"nnls round-2 regression at {R_REGIONS} regions: {counts} "
+    log(f"nnls round-2 regression at {R_REGIONS} regions: {rec.counters} "
         f"in {time.perf_counter() - t0:.3f}s")
 
 
@@ -2052,30 +2053,26 @@ def vmap_regressions(device, bt):
     """The train stage at the XPRIZE width with LASSO (50 folds) and with
     the element-wise robust fits, on the generic core: its wall, finite
     coefficients (non-negative slopes for the element-wise fits), and
-    LASSO's sweeps and host syncs over the stage's two lasso_cv calls."""
-    counts = {}
-    real = core.lasso_cv
-    core.lasso_cv = lambda *a, **k: real(*a, counts=counts, **k)
-    try:
-        for reg in ("LASSO", "NONNEGATIVELS-ELEMENT-WISE"):
-            cfg = PipelineConfig(backend="vmap", regression_type=reg)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
+    LASSO's sweeps and host syncs over the stage's two lasso_cv calls (the
+    recording's counters)."""
+    for reg in ("LASSO", "NONNEGATIVELS-ELEMENT-WISE"):
+        cfg = PipelineConfig(backend="vmap", regression_type=reg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with recording() as rec:
             tr = train_regions(bt, MINS, NPI_MAXES_DEFAULT, T_HIST, cfg,
                                dtype=F32, device=device).trained
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            check(all(bool(torch.isfinite(t).all())
-                      for t in (tr.a1, tr.b1, tr.a2, tr.b2)),
-                  f"train {reg}: a coefficient is not finite")
-            if reg != "LASSO":
-                check(bool((tr.a2 >= 0).all()), f"train {reg}: a2 < 0")
-            log(f"vmap train {reg} at {R_REGIONS} regions x {T_HIST} days: "
-                f"wall={wall:.3f}s "
-                + (f"lasso_cv {counts}" if reg == "LASSO" else
-                   "(no host sync in the regression)"))
-    finally:
-        core.lasso_cv = real
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(all(bool(torch.isfinite(t).all())
+                  for t in (tr.a1, tr.b1, tr.a2, tr.b2)),
+              f"train {reg}: a coefficient is not finite")
+        if reg != "LASSO":
+            check(bool((tr.a2 >= 0).all()), f"train {reg}: a2 < 0")
+        log(f"vmap train {reg} at {R_REGIONS} regions x {T_HIST} days: "
+            f"wall={wall:.3f}s "
+            + (f"lasso_cv {rec.counters}" if reg == "LASSO" else
+               "(no host sync in the regression)"))
 
 
 def vmap_phase(device, bt, bf, actual):

@@ -44,6 +44,7 @@ from ..regression import (lasso_cv, nnls_with_intercept,
                           robust_affine_fit_elementwise)
 from ..utils.device import resolve_device
 from ..utils.math import clip_lo_hi
+from ..utils.profiling import span
 from .config import PipelineConfig
 
 
@@ -290,10 +291,12 @@ def train_regions(batch, npi_mins, npi_maxes, num_regression_days,
     """Two-round EKF + regression training over all regions at once
     (TrainPredictPrescribeNPI.m:199-354). batch: RegionBatch over the
     TRAINING window (no forecast horizon). mesh: see the module
-    docstring."""
+    docstring. Spans (utils.profiling): ``train.init``, ``train.ekf3`` and
+    ``train.regress`` (each of the last two once a round)."""
     check_config(cfg)
     batch, fd, dev = device_batch(batch, dtype, mesh_device(mesh, device))
-    init = region_init(batch, cfg, fd, dev)
+    with span("train.init"):
+        init = region_init(batch, cfg, fd, dev)
     obs, npis = batch.observations, batch.npis
     R, T = obs.shape
     nrd = int(num_regression_days)
@@ -301,18 +304,22 @@ def train_regions(batch, npi_mins, npi_maxes, num_regression_days,
     R_v = batch.obs_noise_var
 
     # ROUND 1: zero control input, zero NPI influence (:199-248)
-    res1 = _run_ekf3(cfg, torch.zeros_like(npis), obs, params, R_v, init,
-                     mesh)
+    with span("train.ekf3"):
+        res1 = _run_ekf3(cfg, torch.zeros_like(npis), obs, params, R_v, init,
+                         mesh)
 
     # regression 1: alpha ~ (NPI_MAX - NPI) over the last regression window
     maxes = to_tensor(npi_maxes, fd, dev)
     x_win = (maxes[None, None, :] - npis)[:, T - nrd:, :]
-    a1, b1 = _regress(cfg, x_win, res1.s_smooth[:, T - nrd:, 2])
+    with span("train.regress"):
+        a1, b1 = _regress(cfg, x_win, res1.s_smooth[:, T - nrd:, 2])
 
     # ROUND 2: historic NPIs + learned influence (:295-307)
-    res2 = _run_ekf3(cfg, npis, obs, dict(params, a=a1, b=b1), R_v, init,
-                     mesh)
-    a2, b2 = _regress(cfg, x_win, res2.s_smooth[:, T - nrd:, 2])
+    with span("train.ekf3"):
+        res2 = _run_ekf3(cfg, npis, obs, dict(params, a=a1, b=b1), R_v, init,
+                         mesh)
+    with span("train.regress"):
+        a2, b2 = _regress(cfg, x_win, res2.s_smooth[:, T - nrd:, 2])
 
     trained = TrainedRegionParams(
         names=tuple(batch.names), population=np.asarray(batch.population),

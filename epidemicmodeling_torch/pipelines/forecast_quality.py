@@ -30,6 +30,7 @@ from ..models.si_alpha import si_alpha_ekf_system
 from ..ops.cuda.ekf3_kernel import ekf3_lanes
 from ..ops.ekf import ekf_smoother
 from ..parallel.mesh import mesh_device
+from ..utils.profiling import span
 from .config import PipelineConfig
 from .core import (check_config, device_batch, stage_params, to_tensor,
                    train_regions)
@@ -65,62 +66,71 @@ def forecast_quality_assessment(batch, npi_mins, npi_maxes,
     replicated on its lead slot (parallel.mesh.shard_region_batch) and the
     (region, start) lanes of the ekf3 call (the product's largest, R x S)
     are split over every slot, one launch a slot; dp must divide the
-    regions."""
-    check_config(cfg)
-    if mesh is not None and batch.observations.shape[0] % mesh.shape["dp"]:
-        raise ValueError(
-            f"{batch.observations.shape[0]} regions not divisible by "
-            f"mesh dp={mesh.shape['dp']}")
-    batch, fd, dev = device_batch(batch, dtype, mesh_device(mesh, device))
-    R, T = batch.observations.shape
-    S, H = int(num_forecast_days), int(max_look_ahead_days)
-    T_train = T - S
-    if not (1 <= S and T_train >= 2):
-        raise ValueError(
-            f"num_forecast_days={S} leaves {T_train} training days of the "
-            f"{T}-day series — need at least 2 (the holdout starts are the "
-            "LAST num_forecast_days days)")
+    regions.
 
-    # train on the head window (the flagship's front end)
-    head = lambda a: a[:, :T_train]
-    train_batch = batch._replace(
-        observations=head(batch.observations),
-        new_cases_norm=head(batch.new_cases_norm),
-        confirmed_norm=head(batch.confirmed_norm),
-        npis=head(batch.npis), obs_noise_var=head(batch.obs_noise_var))
-    train_out = train_regions(train_batch, npi_mins, npi_maxes,
-                              num_regression_days, cfg, mesh=mesh)
-    init = train_out.init
-    params = stage_params(cfg, batch, train_out.trained, npi_mins, npi_maxes,
-                          fd, dev)
-    pop = to_tensor(batch.population, fd, dev)
-    truth = to_tensor(batch.new_cases_norm, fd, dev) * pop[:, None]
+    Spans (utils.profiling): ``backtest`` (the call) over
+    ``backtest.train`` (train_regions), ``backtest.lanes`` (the lane
+    inputs), ``backtest.ekf3`` (the (region, start) filters) and
+    ``backtest.errors`` (the error curves and their aggregates)."""
+    with span("backtest"):
+        check_config(cfg)
+        R = batch.observations.shape[0]
+        if mesh is not None and R % mesh.shape["dp"]:
+            raise ValueError(f"{R} regions not divisible by mesh "
+                             f"dp={mesh.shape['dp']}")
+        batch, fd, dev = device_batch(batch, dtype,
+                                      mesh_device(mesh, device))
+        R, T = batch.observations.shape
+        S, H = int(num_forecast_days), int(max_look_ahead_days)
+        T_train = T - S
+        if not (1 <= S and T_train >= 2):
+            raise ValueError(
+                f"num_forecast_days={S} leaves {T_train} training days of "
+                f"the {T}-day series — need at least 2 (the holdout starts "
+                "are the LAST num_forecast_days days)")
 
-    if cfg.backend == "vmap":
-        s_plus, s_smooth = _run_all_vmap(cfg, batch.observations, batch.npis,
-                                         batch.obs_noise_var, params, init, S)
-    else:
-        s_plus, s_smooth = _run_all_lanes(
-            cfg, batch.observations, batch.npis, batch.obs_noise_var, params,
-            init, S, mesh)
-    err_plus, err_smooth = _errors_from_states(s_plus, s_smooth, truth, pop,
-                                               H)
+        # train on the head window (the flagship's front end)
+        head = lambda a: a[:, :T_train]
+        train_batch = batch._replace(
+            observations=head(batch.observations),
+            new_cases_norm=head(batch.new_cases_norm),
+            confirmed_norm=head(batch.confirmed_norm),
+            npis=head(batch.npis), obs_noise_var=head(batch.obs_noise_var))
+        with span("backtest.train"):
+            train_out = train_regions(train_batch, npi_mins, npi_maxes,
+                                      num_regression_days, cfg, mesh=mesh)
+        init = train_out.init
+        params = stage_params(cfg, batch, train_out.trained, npi_mins,
+                              npi_maxes, fd, dev)
+        pop = to_tensor(batch.population, fd, dev)
+        truth = to_tensor(batch.new_cases_norm, fd, dev) * pop[:, None]
 
-    # aggregate over start days with a full look-ahead window (the
-    # reference averages rows MaxLookAheadDays..end, :423-429). Per-day
-    # errors keep the reference's inf on zero-truth days (:390-391); the
-    # aggregates mask non-finite entries, and an all-masked (region,
-    # horizon) cell aggregates to NaN.
-    e = err_smooth[:, H - 1:] if S >= H else err_smooth
-    finite = torch.isfinite(e)
-    n_ok = finite.sum(dim=1)
-    total = torch.where(finite, e, torch.zeros_like(e)).sum(dim=1)
-    mean_sm = torch.where(n_ok > 0, total / n_ok.clamp_min(1),
-                          torch.full_like(total, float("nan")))
-    med_sm = _nanmedian(torch.where(finite, e,
-                                    torch.full_like(e, float("nan"))))
-    return BacktestResult(err_plus, err_smooth, mean_sm, med_sm,
-                          train_out.trained)
+        if cfg.backend == "vmap":
+            s_plus, s_smooth = _run_all_vmap(
+                cfg, batch.observations, batch.npis, batch.obs_noise_var,
+                params, init, S)
+        else:
+            s_plus, s_smooth = _run_all_lanes(
+                cfg, batch.observations, batch.npis, batch.obs_noise_var,
+                params, init, S, mesh)
+        with span("backtest.errors"):
+            err_plus, err_smooth = _errors_from_states(
+                s_plus, s_smooth, truth, pop, H)
+            # aggregate over start days with a full look-ahead window (the
+            # reference averages rows MaxLookAheadDays..end, :423-429).
+            # Per-day errors keep the reference's inf on zero-truth days
+            # (:390-391); the aggregates mask non-finite entries, and an
+            # all-masked (region, horizon) cell aggregates to NaN.
+            e = err_smooth[:, H - 1:] if S >= H else err_smooth
+            finite = torch.isfinite(e)
+            n_ok = finite.sum(dim=1)
+            total = torch.where(finite, e, torch.zeros_like(e)).sum(dim=1)
+            mean_sm = torch.where(n_ok > 0, total / n_ok.clamp_min(1),
+                                  torch.full_like(total, float("nan")))
+            med_sm = _nanmedian(torch.where(
+                finite, e, torch.full_like(e, float("nan"))))
+        return BacktestResult(err_plus, err_smooth, mean_sm, med_sm,
+                              train_out.trained)
 
 
 def backtest_lane_inputs(obs, npis, R_v, params, init, S):
@@ -147,10 +157,12 @@ def _run_all_lanes(cfg, obs, npis, R_v, params, init, S, mesh=None):
     ``mesh``). Returns the filtered and smoothed states, each
     (R, S, T, 3)."""
     R, T = obs.shape
-    ss_bl, sp_bl, _ = ekf3_lanes(
-        *backtest_lane_inputs(obs, npis, R_v, params, init, S),
-        gamma_discount=cfg.gamma_ekf, obs_type=cfg.observation_type,
-        mesh=mesh)
+    with span("backtest.lanes"):
+        lanes = backtest_lane_inputs(obs, npis, R_v, params, init, S)
+    with span("backtest.ekf3"):
+        ss_bl, sp_bl, _ = ekf3_lanes(
+            *lanes, gamma_discount=cfg.gamma_ekf,
+            obs_type=cfg.observation_type, mesh=mesh)
     back = lambda a: torch.movedim(a, -1, 0).reshape(R, S, T, 3)
     return back(sp_bl), back(ss_bl)
 
@@ -160,15 +172,18 @@ def _run_all_vmap(cfg, obs, npis, R_v, params, init, S):
     cfg.smoother_gain and outputs "light". Returns the filtered and smoothed
     states, each (R, S, T, 3)."""
     R, T = obs.shape
-    u, x, Rv, params_bl, Q, s0, Ps0 = backtest_lane_inputs(
-        obs, npis, R_v, params, init, S)
+    with span("backtest.lanes"):
+        u, x, Rv, params_bl, Q, s0, Ps0 = backtest_lane_inputs(
+            obs, npis, R_v, params, init, S)
     first = lambda a: torch.movedim(a, -1, 0)
-    res = ekf_smoother(
-        si_alpha_ekf_system(cfg.observation_type), first(u), x.T,
-        {k: first(v) for k, v in params_bl.items()}, s0.T, first(Ps0),
-        Q=first(Q), R=Rv.T, beta=cfg.beta_ekf, gamma_discount=cfg.gamma_ekf,
-        inv_monitor_len=cfg.inv_monitor_len, order=cfg.order,
-        smoother_gain=cfg.smoother_gain, outputs="light")
+    with span("backtest.ekf3"):
+        res = ekf_smoother(
+            si_alpha_ekf_system(cfg.observation_type), first(u), x.T,
+            {k: first(v) for k, v in params_bl.items()}, s0.T, first(Ps0),
+            Q=first(Q), R=Rv.T, beta=cfg.beta_ekf,
+            gamma_discount=cfg.gamma_ekf, inv_monitor_len=cfg.inv_monitor_len,
+            order=cfg.order, smoother_gain=cfg.smoother_gain,
+            outputs="light")
     back = lambda a: a.reshape(R, S, T, 3)
     return back(res.s_plus), back(res.s_smooth)
 

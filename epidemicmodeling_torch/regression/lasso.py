@@ -12,28 +12,29 @@ and folds inside lasso_cv). The JAX code runs a ``while_loop`` of sweeps per
 lambda under ``vmap``, so each problem stops at its own sweep. Here the
 sweeps run over the whole batch with finished problems frozen by
 ``torch.where`` until every problem is done, the same coefficients as the
-per-problem loops (see _cd_solve for the host syncs this costs).
+per-problem loops (see _cd_solve for the host syncs this costs; each goes
+through utils.profiling.host_sync, and the sweeps count as
+``lasso.sweeps`` in the recording in force).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
 
 import numpy as np
 import torch
+
+from ..utils.profiling import count, host_sync
 
 
 # sweeps a CUDA graph replays between two checks for finished problems
 GRAPH_SWEEPS = 10
 
 
-def _cd_solve(Xs, yc, lambdas, max_sweeps, tol, counts=None):
+def _cd_solve(Xs, yc, lambdas, max_sweeps, tol):
     """Coordinate descent along a descending lambda path with warm starts
     from zero. Xs: (..., n, p) standardized predictors, yc: (..., n)
-    centered targets, lambdas: (..., L). Returns B (..., L, p). ``counts``
-    (optional dict) accumulates the "sweeps" run and the "syncs" (host
-    reads of the done flags).
+    centered targets, lambdas: (..., L). Returns B (..., L, p).
 
     Each coordinate's correlation with the residual, x_j . r, is formed
     from the Gram matrix as c_j - G_j . b (c = Xs' yc, G = Xs' Xs), the
@@ -87,10 +88,8 @@ def _cd_solve(Xs, yc, lambdas, max_sweeps, tol, counts=None):
         it.zero_()
         while True:
             run()
-            if counts is not None:
-                counts["sweeps"] = counts.get("sweeps", 0) + per_run
-                counts["syncs"] = counts.get("syncs", 0) + 1
-            if not bool(active.any()):
+            count("lasso.sweeps", per_run)
+            if not host_sync(bool, active.any()):
                 break
         out.append(b.clone())
     if not out:
@@ -115,7 +114,7 @@ def _standardize(X, y, w=None):
 
 def lasso_path(X, y, lambdas=None, n_lambda: int = 100,
                lambda_ratio: float = 1e-4, max_sweeps: int = 1000,
-               tol: float = 1e-10, counts: Optional[dict] = None):
+               tol: float = 1e-10):
     """Fit the full lasso path of every problem. X: (..., n, p), y: (..., n).
 
     Returns (B (..., L, p) coefficients on the ORIGINAL scale, intercepts
@@ -130,7 +129,7 @@ def lasso_path(X, y, lambdas=None, n_lambda: int = 100,
         lambdas = lambda_grid(Xs, yc, n_lambda, lambda_ratio)
     lambdas = torch.as_tensor(lambdas, dtype=dtype, device=X.device)
     lambdas = lambdas.expand(X.shape[:-2] + lambdas.shape[-1:])
-    B_std = _cd_solve(Xs, yc, lambdas, max_sweeps, tol, counts)
+    B_std = _cd_solve(Xs, yc, lambdas, max_sweeps, tol)
     # columns with zero variance carry no signal; force their coefs to 0
     B_std = torch.where(sd_x[..., None, :] > 0, B_std, 0.0)
     B = B_std / sd_safe[..., None, :]
@@ -153,7 +152,7 @@ def lambda_grid(Xs, yc, n_lambda, lambda_ratio):
 
 def lasso_cv(X, y, n_folds: int = 50, n_lambda: int = 100,
              lambda_ratio: float = 1e-4, max_sweeps: int = 1000,
-             tol: float = 1e-10, perm=None, counts: Optional[dict] = None):
+             tol: float = 1e-10, perm=None):
     """K-fold cross-validated lasso of every problem: X (..., n, p),
     y (..., n). Returns (coef (..., p), intercept (...), info dict).
 
@@ -192,7 +191,7 @@ def lasso_cv(X, y, n_folds: int = 50, n_lambda: int = 100,
     Xs = ((Xk - mu_xk[..., None, :]) / sd_safe[..., None, :]) \
         * w[..., None] * scale[..., None]
     yc = (yk - mu_yk[..., None]) * w * scale
-    B_std = _cd_solve(Xs, yc, lambdas[..., None, :], max_sweeps, tol, counts)
+    B_std = _cd_solve(Xs, yc, lambdas[..., None, :], max_sweeps, tol)
     B_std = torch.where(sd_xk[..., None, :] > 0, B_std, 0.0)
     B = B_std / sd_safe[..., None, :]                         # (..., K, L, p)
     b0 = mu_yk[..., None] - (B @ mu_xk[..., None])[..., 0]    # (..., K, L)
@@ -204,8 +203,7 @@ def lasso_cv(X, y, n_folds: int = 50, n_lambda: int = 100,
     idx_min = torch.argmin(mean_mse, dim=-1)
 
     B_full, b0_full, _ = lasso_path(X, y, lambdas=lambdas,
-                                    max_sweeps=max_sweeps, tol=tol,
-                                    counts=counts)
+                                    max_sweeps=max_sweeps, tol=tol)
     coef = torch.take_along_dim(B_full, idx_min[..., None, None],
                                 dim=-2)[..., 0, :]
     intercept = torch.take_along_dim(b0_full, idx_min[..., None],

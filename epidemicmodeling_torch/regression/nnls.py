@@ -13,14 +13,16 @@ same loops run eagerly: ``while active.any()`` with finished lanes frozen by
 launches on a card). The masked normal-equation solves are batched
 ``torch.linalg.cholesky_ex`` + ``cholesky_solve`` over (R, p, p). A singular
 passive set poisons its lane with NaN, never a clamped finite value
-(nnls.py:47-52).
+(nnls.py:47-52). Each sync goes through utils.profiling.host_sync, and the
+iterations count as ``nnls.outer``, ``nnls.inner`` and ``nnls.intercept``
+in the recording in force.
 """
 
 from __future__ import annotations
 
-from typing import Optional
-
 import torch
+
+from ..utils.profiling import count, host_sync
 
 
 def _masked_ls(G, c, P):
@@ -38,22 +40,14 @@ def _masked_ls(G, c, P):
                        torch.full_like(z, float("nan")))
 
 
-def _count(counts, key):
-    if counts is not None:
-        counts[key] = counts.get(key, 0) + 1
-
-
-def nnls(X: torch.Tensor, y: torch.Tensor,
-         counts: Optional[dict] = None) -> torch.Tensor:
+def nnls(X: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Solve min_x ||X x - y||^2 s.t. x >= 0 for every problem of a batch.
 
     X: (R, n, p) or (n, p); y: (R, n) or (n,). Returns x (R, p) or (p,).
     The tolerance is MATLAB lsqnonneg's, 10 * eps * ||X||_1 * max(n, p), and
-    the outer loop runs at most 3p times. ``counts`` (optional dict)
-    accumulates the "outer" and "inner" iterations run (each one host
-    sync)."""
+    the outer loop runs at most 3p times."""
     if X.dim() == 2:
-        return nnls(X[None], y[None], counts)[0]
+        return nnls(X[None], y[None])[0]
     dtype = torch.promote_types(X.dtype, y.dtype)
     X, y = X.to(dtype), y.to(dtype)
     R, n, p = X.shape
@@ -79,9 +73,9 @@ def nnls(X: torch.Tensor, y: torch.Tensor,
     for _ in range(3 * p):
         w_free = torch.where(P, neg_inf, w)
         active = active & (~P).any(dim=-1) & (torch.amax(w_free, -1) > tol_v)
-        if not bool(active.any()):
+        if not host_sync(bool, active.any()):
             break
-        _count(counts, "outer")
+        count("nnls.outer")
         j = torch.argmax(w_free, dim=-1)
         P_new = P.clone()
         P_new[lanes, j] = True
@@ -89,9 +83,9 @@ def nnls(X: torch.Tensor, y: torch.Tensor,
         z = _masked_ls(G, c, P)
         inner = active & inner_cond(P, z)
         for _ in range(p + 1):
-            if not bool(inner.any()):
+            if not host_sync(bool, inner.any()):
                 break
-            _count(counts, "inner")
+            count("nnls.inner")
             mask = P & (z <= 0.0)
             ratio = torch.where(mask, x / (x - z), inf)
             alpha = torch.amin(ratio, dim=-1, keepdim=True)
@@ -108,8 +102,7 @@ def nnls(X: torch.Tensor, y: torch.Tensor,
 
 
 def nnls_with_intercept(X: torch.Tensor, y: torch.Tensor,
-                        iterations: int = 100,
-                        counts: Optional[dict] = None):
+                        iterations: int = 100):
     """The reference's alternating NNLS + intercept refinement
     (Tools/TrainPredictPrescribeNPI.m:263-278), per problem of a batch:
 
@@ -122,10 +115,9 @@ def nnls_with_intercept(X: torch.Tensor, y: torch.Tensor,
         else: break
 
     X: (R, n, p) or (n, p); y: (R, n) or (n,). Returns (a (R, p), b (R,))
-    (unbatched: (p,), scalar). ``counts`` also accumulates the "intercept"
-    steps."""
+    (unbatched: (p,), scalar)."""
     if X.dim() == 2:
-        a, b = nnls_with_intercept(X[None], y[None], iterations, counts)
+        a, b = nnls_with_intercept(X[None], y[None], iterations)
         return a[0], b[0]
     dtype = torch.promote_types(X.dtype, y.dtype)
     X, y = X.to(dtype), y.to(dtype)
@@ -133,17 +125,17 @@ def nnls_with_intercept(X: torch.Tensor, y: torch.Tensor,
     def resid(Xs, ys, a):
         return ys - (Xs @ a[..., None])[..., 0]
 
-    a = nnls(X, y, counts=counts)
+    a = nnls(X, y)
     b = torch.zeros(X.shape[0], dtype=dtype, device=X.device)
     best = torch.sum(resid(X, y, a) ** 2, dim=-1)
     active = torch.ones(X.shape[0], dtype=torch.bool, device=X.device)
     for _ in range(iterations):
-        idx = torch.nonzero(active)[:, 0]
+        idx = host_sync(torch.nonzero, active)[:, 0]
         if idx.numel() == 0:
             break
-        _count(counts, "intercept")
+        count("nnls.intercept")
         Xs, ys, a_s = X[idx], y[idx], a[idx]
-        a_cand = nnls(Xs, ys - b[idx, None], counts=counts)
+        a_cand = nnls(Xs, ys - b[idx, None])
         r = resid(Xs, ys, a_s)
         b_cand = torch.mean(r, dim=-1)
         err = torch.sum((r - b_cand[:, None]) ** 2, dim=-1)

@@ -19,6 +19,7 @@ from epidemicmodeling_tpu.regression.nnls import (
 
 from epidemicmodeling_torch.regression.nnls import (
     _masked_ls, nnls, nnls_with_intercept)
+from epidemicmodeling_torch.utils.profiling import recording
 
 TOL = dict(rtol=1e-9, atol=1e-12)
 
@@ -54,11 +55,11 @@ def problems(seed, R=24, n=40, p=12):
 def test_nnls_matches_jax(seed):
     X, y = problems(seed)
     ref = np.asarray(jax.vmap(jax_nnls)(jnp.asarray(X), jnp.asarray(y)))
-    counts = {}
-    got = nnls(torch.from_numpy(X), torch.from_numpy(y), counts=counts)
+    with recording() as rec:
+        got = nnls(torch.from_numpy(X), torch.from_numpy(y))
     np.testing.assert_allclose(got.numpy(), ref, **TOL)
     assert (got.numpy() >= 0).all()
-    assert 0 < counts["outer"] <= 36
+    assert 0 < rec.counters["nnls.outer"] <= 36
     # the unbatched form is the batch of one
     one = nnls(torch.from_numpy(X[0]), torch.from_numpy(y[0]))
     np.testing.assert_allclose(one.numpy(), ref[0], **TOL)
@@ -68,12 +69,11 @@ def test_nnls_matches_jax(seed):
 def test_nnls_with_intercept_matches_jax(seed):
     X, y = problems(seed)
     a_ref, b_ref = jax.vmap(jax_nnls_icpt)(jnp.asarray(X), jnp.asarray(y))
-    counts = {}
-    a, b = nnls_with_intercept(torch.from_numpy(X), torch.from_numpy(y),
-                               counts=counts)
+    with recording() as rec:
+        a, b = nnls_with_intercept(torch.from_numpy(X), torch.from_numpy(y))
     np.testing.assert_allclose(a.numpy(), np.asarray(a_ref), **TOL)
     np.testing.assert_allclose(b.numpy(), np.asarray(b_ref), **TOL)
-    assert counts["intercept"] >= 1
+    assert rec.counters["nnls.intercept"] >= 1
     a0, b0 = nnls_with_intercept(torch.from_numpy(X[1]),
                                  torch.from_numpy(y[1]))
     np.testing.assert_allclose(a0.numpy(), np.asarray(a_ref)[1], **TOL)

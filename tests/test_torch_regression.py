@@ -26,6 +26,7 @@ from epidemicmodeling_torch.pipelines import PipelineConfig
 from epidemicmodeling_torch.pipelines.core import _regress
 from epidemicmodeling_torch.regression import (lasso_cv, lasso_path,
                                                robust_affine_fit_elementwise)
+from epidemicmodeling_torch.utils.profiling import recording
 
 LASSO_TOL = dict(rtol=1e-9, atol=1e-10)
 ROBUST_TOL = dict(rtol=1e-9, atol=1e-12)
@@ -56,15 +57,15 @@ def _npi_problems(R, n, seed, outliers=False):
 
 def test_lasso_path_matches_jax():
     X, y = _npi_problems(3, 40, 0)
-    counts = {}
-    B, b0, lam = lasso_path(torch.tensor(X), torch.tensor(y), n_lambda=30,
-                            counts=counts)
+    with recording() as rec:
+        B, b0, lam = lasso_path(torch.tensor(X), torch.tensor(y),
+                                n_lambda=30)
     Bj, b0j, lamj = jax.vmap(lambda X_, y_: jax_lasso_path(
         X_, y_, n_lambda=30))(jnp.asarray(X), jnp.asarray(y))
     np.testing.assert_allclose(lam.numpy(), np.asarray(lamj), rtol=1e-12)
     np.testing.assert_allclose(B.numpy(), np.asarray(Bj), **LASSO_TOL)
     np.testing.assert_allclose(b0.numpy(), np.asarray(b0j), **LASSO_TOL)
-    assert B.shape == (3, 30, 12) and counts["sweeps"] >= 30
+    assert B.shape == (3, 30, 12) and rec.counters["lasso.sweeps"] >= 30
     # an unbatched problem is the same computation
     B1, _, _ = lasso_path(torch.tensor(X[1]), torch.tensor(y[1]),
                           n_lambda=30)
