@@ -24,7 +24,10 @@ CUDA toolkit (nvcc). In order, it:
 5. drives run_pipeline at the XPRIZE size (235 regions, 440 training days
    plus a 92-day horizon, 250 epsilons in chunks of 25, 500 Monte-Carlo
    schedules) cold then warm, counts the kernel launches of the warm run and
-   checks its outputs (one ekf3 launch per ekf3 call);
+   checks its outputs (one ekf3 launch per ekf3 call); then holds the NNLS
+   kernel against its plain version on the round-2 regression of the
+   xprize-backtest cell's training (235 x 380 x 12, float32), times both
+   and logs the kernel's iteration totals and launches;
 6. holds the diffusion-stencil kernel against its plain version (both
    schemes, four shapes up to 8191 x 8193) and times kernel, plain version
    and one conv2d as a yardstick; then holds the multi-step kernel (many
@@ -241,8 +244,8 @@ from epidemicmodeling_torch.ml.svr import svr_objective
 from epidemicmodeling_torch.models import (seirp_rollout,
                                            seirp_saturated_rollout)
 from epidemicmodeling_torch.ops.cuda import (build, ekf3_kernel, ekf6_kernel,
-                                             pairwise_kernel, roofline_kernel,
-                                             stencil_kernel)
+                                             nnls_kernel, pairwise_kernel,
+                                             roofline_kernel, stencil_kernel)
 from epidemicmodeling_torch.ops.diagnostics import (filter_health,
                                                     summarize_health)
 from epidemicmodeling_torch.ops.ar import ar_design, ar_normal_matrix
@@ -271,6 +274,7 @@ from epidemicmodeling_torch.pipelines.core import (
 from epidemicmodeling_torch.pipelines.prescribe import (
     ARPrescriptionResult, ar_alpha_prescription, new_case_ekf_optimal_npi)
 from epidemicmodeling_torch.regression import nnls_with_intercept
+from epidemicmodeling_torch.regression.nnls import nnls_with_intercept_plain
 from epidemicmodeling_torch.rt import (rt_expfit_ekf, rt_expfit_gen_ratios,
                                        rt_expfit_log_lin_reg,
                                        rt_expfit_nonlin_ls)
@@ -298,6 +302,12 @@ F32 = torch.float32
 # and the share of prescribed cells (rows T_hist .. T-2) that differ. A
 # bound on a "_nonfinite" share of 0 requires both sides finite there.
 EKF3_BOUNDS = {"s_plus": 1e-4, "s_smooth": 1e-3}
+# NNLS kernel vs plain version, float32: the largest relative gap of a
+# problem's squared residual (nnls_agreement). On backtest_regression's
+# seeds 0-2 the two read <= 7.8e-8 apart, while the float32 answers lie up
+# to 7.6e-4-3.6e-3 above the float64 optimum and zeroing the largest
+# coefficient reads >= 4.9e-2 (NVIDIA H100 80GB HBM3, 700 W).
+NNLS_F32_SSE_GAP = 1e-4
 EKF6_FINITE = {"s_plus": 1e-3, "s_smooth": 1e-2, "u_diff": 5e-3,
                "s_plus_nonfinite": 0.0, "s_plus_nonfinite_mismatch": 0.0,
                "s_smooth_nonfinite": 0.0,
@@ -342,11 +352,20 @@ KERNELS = {
         replaces="epidemicmodeling_tpu/deploy/src/newcase_ekf.cpp:352",
         note="not a TPU kernel: the JAX package's native CPU library "
              "(newcase_ekf_pareto_sweep), built for the card"),
+    # not a TPU kernel: the JAX package nests lax.while_loops under vmap
+    "nnls": dict(
+        run=nnls_with_intercept, plain=nnls_with_intercept_plain,
+        source="epidemicmodeling_torch/csrc/nnls.cu",
+        note="not a TPU kernel: the JAX package runs the NNLS and its "
+             "intercept loop as lax.while_loops under vmap "
+             "(epidemicmodeling_tpu/regression/nnls.py:86, :158); it "
+             "replaces the port's eager loop, which synced the host at "
+             "every loop test"),
 }
 LAUNCH_COUNTERS = {"ekf3": ekf3_kernel, "ekf6": ekf6_kernel,
                    "stencil": stencil_kernel, "pairwise": pairwise_kernel,
                    "roofline": roofline_kernel,
-                   "newcase_ekf": deploy_native}
+                   "newcase_ekf": deploy_native, "nnls": nnls_kernel}
 
 # The card's published peaks (H100 SXM, 700 W):
 # device memory and float32 outside the tensor cores.
@@ -544,12 +563,12 @@ PEAK_F64_PER_S = 34e12
 # their own sizes and dtype (float32), the XPRIZE driver's Phase-II run at
 # 235 regions on CSVs from 2020-03-15 through 2021-08-29 (its fixed
 # window) under EXAMPLES_DIR.
-EXAMPLE_KERNELS = {"xprize_prescribe": ("ekf3", "ekf6"),
-                   "prescribe_from_checkpoint": ("ekf3", "ekf6"),
-                   "forecast_quality": ("ekf3",),
-                   "realistic_data_pipeline": ("ekf3", "ekf6"),
+EXAMPLE_KERNELS = {"xprize_prescribe": ("ekf3", "ekf6", "nnls"),
+                   "prescribe_from_checkpoint": ("ekf3", "ekf6", "nnls"),
+                   "forecast_quality": ("ekf3", "nnls"),
+                   "realistic_data_pipeline": ("ekf3", "ekf6", "nnls"),
                    "spatial_sims": ("stencil", "pairwise"),
-                   "make_figures": ("ekf3", "ekf6")}
+                   "make_figures": ("ekf3", "ekf6", "nnls")}
 EXAMPLE_ARGS = {"xprize_prescribe": (["xprize_prescribe", "--synthetic"],),
                 "prescribe_from_checkpoint": (["prescribe_from_checkpoint"],)}
 EXAMPLE_CUTS = {"seirp_scenarios": dict(dt=1.0),
@@ -682,6 +701,12 @@ def reset_launches() -> None:
 
 def read_launches() -> dict:
     return {name: mod.launches for name, mod in LAUNCH_COUNTERS.items()}
+
+
+def other_launches(n: dict) -> dict:
+    """The launches ``n`` of every kernel but the NNLS, which every
+    training at NONNEGATIVELS makes, whatever runs its filters."""
+    return {k: v for k, v in n.items() if k != "nnls"}
 
 
 def bound(nbytes: float, ops: float):
@@ -958,6 +983,8 @@ def main_path(device, bt, bf, actual):
                                      "main path")
     check(launches["ekf3"] >= 3, f"ekf3 launched {launches['ekf3']} times")
     check(launches["ekf6"] >= 10, f"ekf6 launched {launches['ekf6']} times")
+    check(launches["nnls"] == 2, f"nnls launched {launches['nnls']} times, "
+                                 "one a training regression expected")
     return res, wall, launches
 
 
@@ -987,21 +1014,90 @@ def device_time(run, wall):
         log(f"  {dev(e) / 1e3:9.3f} ms x{e.count:6d}  {e.key[:90]}")
 
 
-def nnls_counts(device, bt):
-    """Iterations and host syncs of the batched NNLS on the round-2
-    regression of the XPRIZE-size train stage (the recording's counters)."""
+def backtest_regression(device, seed: int = 0):
+    """The round-2 regression of backtest_phase's training at its size: the
+    port's synthetic regions (xprize_inputs, drawn from ``seed``) over
+    T_HIST - BT_STARTS days, trained by train_regions at backtest_phase's
+    configuration with every day a regression day, as
+    forecast_quality_assessment trains, float32 on ``device``. Returns
+    (X (235, 380, 12), y (235, 380), a strided view)."""
+    T = T_HIST - BT_STARTS
+    bt, _, _, _ = xprize_inputs(R_REGIONS, T, HORIZON, seed)
     cfg = PipelineConfig(backend="pallas", smoother_gain="solve")
-    out = train_regions(bt, MINS, NPI_MAXES_DEFAULT, T_HIST, cfg, dtype=F32,
+    out = train_regions(bt, MINS, NPI_MAXES_DEFAULT, T, cfg, dtype=F32,
                         device=device)
     bt_d, _, _ = device_batch(bt, F32, device)
-    x_win = to_tensor(NPI_MAXES_DEFAULT, F32, device) - bt_d.npis
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with recording() as rec:
-        nnls_with_intercept(x_win, out.s_smooth_round2[:, :, 2])
-    torch.cuda.synchronize()
-    log(f"nnls round-2 regression at {R_REGIONS} regions: {rec.counters} "
-        f"in {time.perf_counter() - t0:.3f}s")
+    X = to_tensor(NPI_MAXES_DEFAULT, F32, device)[None, None, :] - bt_d.npis
+    return X, out.s_smooth_round2[:, :, 2]
+
+
+def nnls_sse(X, y, a, b):
+    """Each problem's squared residual ||y - X a - b||^2, in float64."""
+    X, y, a, b = (t.double() for t in (X, y, a, b))
+    return torch.sum((y - (X @ a[..., None])[..., 0] - b[:, None]) ** 2, -1)
+
+
+def nnls_agreement(X, y, got, want) -> dict:
+    """Two NNLS-with-intercept solutions (a, b) of the same problems: how
+    many problems' supports (a > 0) differ, the largest coefficient and
+    intercept differences where they agree, and the largest relative gap
+    of a problem's squared residual (nnls_sse). A support that differs is
+    a co-optimal solution, not a divergence, when its residual matches the
+    other's (tests/test_backend_fuzz.py's certificate, on equal
+    problems)."""
+    (a_g, b_g), (a_w, b_w) = got, want
+    same = ((a_g > 0) == (a_w > 0)).all(-1)
+    s_g, s_w = nnls_sse(X, y, a_g, b_g), nnls_sse(X, y, a_w, b_w)
+    err = lambda d: float(d[same].abs().max()) if bool(same.any()) else 0.0
+    return dict(flips=int((~same).sum()),
+                a_err=err((a_g - a_w).double()),
+                b_err=err((b_g - b_w).double()[:, None]),
+                sse_gap=float(((s_g - s_w).abs()
+                               / s_w.clamp_min(1e-300)).max()))
+
+
+def nnls_counts(device, seed: int = 0):
+    """The NNLS kernel against its plain version on the card, float32, on
+    backtest_phase's round-2 regression (backtest_regression): every
+    problem's squared residual within NNLS_F32_SSE_GAP of the plain
+    version's, which certifies a support that differs as co-optimal
+    (nnls_agreement), both timed with CUDA events beside the kernel's byte
+    bound (X and y read once, a and b written once); the kernel's
+    per-problem iteration totals and launches beside the plain version's
+    batched loop trips and host syncs. Returns the kernel's measurements
+    for its kernels-line entry."""
+    X, y = backtest_regression(device, seed)
+    R, n, p = X.shape
+    reset_launches()
+    with recording() as rk:
+        got = nnls_with_intercept(X, y)
+    launched = read_launches()
+    with recording() as rp:
+        want = nnls_with_intercept_plain(X, y)
+    agree = nnls_agreement(X, y, got, want)
+    ms = cuda_ms(lambda: nnls_with_intercept(X, y))
+    plain_ms = cuda_ms(lambda: nnls_with_intercept_plain(X, y), reps=3)
+    bound_ms = 4 * (R * n * (p + 1) + R * (p + 1)) / PEAK_BYTES_PER_S * 1e3
+    log(f"nnls kernel [backtest round-2 regression] {R} x {n} x {p} "
+        f"float32: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, byte bound "
+        f"{bound_ms:.5f} ms; kernel vs plain {agree}; kernel counters "
+        f"{rk.counters}, plain counters {rp.counters}; launches "
+        f"{launched} a regression")
+    check(rk.counters.get("host_sync") == 0 and launched["nnls"] == 1
+          and sum(launched.values()) == 1,
+          f"the NNLS kernel's route synced or launched again: {rk.counters}"
+          f", launches {launched}")
+    check(agree["sse_gap"] <= NNLS_F32_SSE_GAP,
+          f"the NNLS kernel's residuals part from the plain version's: "
+          f"{agree}")
+    return dict(max_abs_err=max(agree["a_err"], agree["b_err"]),
+                sse_gap=agree["sse_gap"], support_flips=agree["flips"],
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by="bytes", library_ms=None,
+                lane_counters={k: v for k, v in rk.counters.items()
+                               if k.startswith("nnls.lane_")},
+                shape=f"R={R} n={n} p={p} float32 (backtest round-2 "
+                      "regression)")
 
 
 def stencil_phase(device):
@@ -1713,8 +1809,8 @@ def backtest_phase(device, bt):
     finally:
         ekf3_kernel.ekf3 = real
     shapes = [tuple(a[0].shape) for a, _ in calls]
-    check(n["ekf3"] == 3 and len(calls) == 3,
-          f"backtest: {n['ekf3']} ekf3 launches, expected 3")
+    check(n["ekf3"] == 3 and len(calls) == 3 and n["nnls"] == 2,
+          f"backtest: launches {n}, expected 3 ekf3 and 2 nnls")
     B = R_REGIONS * BT_STARTS
     check(shapes == [(T - BT_STARTS, 12, R_REGIONS)] * 2 + [(T, 12, B)],
           f"backtest: ekf3 shapes {shapes}")
@@ -1722,7 +1818,7 @@ def backtest_phase(device, bt):
           "backtest: expected the device-scratch path at B = 14,100")
     m = compare_kernel("ekf3", "backtest", calls[-1][0], device, EKF3_BOUNDS,
                        True)
-    m["launches"] = n["ekf3"]
+    m["launches"], m["nnls_launches"] = n["ekf3"], n["nnls"]
     # the error curves: finite per-day errors where the truth is positive,
     # and every aggregate finite where one of its start days is
     pop = to_tensor(bt.population, F32, device)
@@ -1800,7 +1896,7 @@ def vmap_reference_check(device):
             out.append(fn(dev))
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
-            check(not any(read_launches().values()),
+            check(not any(other_launches(read_launches()).values()),
                   "vmap reference: an EKS kernel launched")
         return out, f"card {walls[0]:.3f}s cpu {walls[1]:.3f}s"
 
@@ -3157,8 +3253,10 @@ def mesh_xprize_runs(device, bt, bf, actual, card):
         res, wall, n = out[name]
         same_bits(xprize_fields(res), xprize_fields(ref),
                   f"mesh {name} XPRIZE")
+        # the regressions stay on the lead slot
         check(n["ekf3"] == MESH_SLOTS * ref_n["ekf3"]
-              and n["ekf6"] == MESH_SLOTS * ref_n["ekf6"],
+              and n["ekf6"] == MESH_SLOTS * ref_n["ekf6"]
+              and n["nnls"] == ref_n["nnls"],
               f"mesh {name}: launches {n}, one slot {ref_n}")
         stages = " ".join(f"{k}={v:.3f}s" for k, v in
                           res.stage_seconds.items())
@@ -3257,7 +3355,7 @@ def mesh_vmap_run(device, card):
             u_random=u_random, mesh=mesh)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        check(not any(read_launches().values()),
+        check(not any(other_launches(read_launches()).values()),
               "mesh vmap: an EKS kernel launched")
         log(f"mesh vmap {name}: wall={wall:.3f}s [{card}]")
     ref, res = out["1 slot"], out["dp=2"]
@@ -4132,7 +4230,7 @@ def examples_phase(device):
 
 def kernel_entries(measured, xprize_launches, stencil_cases, sim_launches,
                    pairwise_cases, cli_launches, backtest, slice5_launches,
-                   roofline, mesh_launches, deploy, example_launches):
+                   roofline, mesh_launches, deploy, example_launches, nnls):
     """One entry per kernel for the JSON line: its launches on its path's
     warm run, its largest error against the plain version, and kernel,
     plain-version, bound and library times at its largest timed shape
@@ -4140,8 +4238,10 @@ def kernel_entries(measured, xprize_launches, stencil_cases, sim_launches,
     mesh XPRIZE run (MESH_SLOTS slots of the card, mesh_slots; not for
     newcase_ekf, which no mesh runs); deploy, slice 8's entry;
     example_launches, slice 9's launches per driver on the card
-    (examples_launches, the drivers that launched the kernel). Fails if a
-    kernel never launched on its path."""
+    (examples_launches, the drivers that launched the kernel); nnls,
+    nnls_counts' measurements, with its launches on the warm main-path,
+    CLI, backtest, trainer and mesh runs. Fails if a kernel never launched
+    on its path."""
     kernels = []
     for name in ("ekf3", "ekf6"):
         big = max((m for m in measured[name] if m["ms"] is not None),
@@ -4198,6 +4298,12 @@ def kernel_entries(measured, xprize_launches, stencil_cases, sim_launches,
         shape=f"N={timed['N']} O={timed['O']} float32"))
     kernels.append(roofline)
     kernels.append(deploy)
+    kernels.append(dict(
+        nnls, launches=xprize_launches["nnls"],
+        path="run_pipeline (XPRIZE size, warm)",
+        cli_launches=cli_launches["nnls"],
+        backtest_launches=backtest["nnls_launches"],
+        train_launches=slice5_launches["train"]["nnls"]))
     kernels = [dict(name=name, route="cuda",
                     **{f: v for f, v in KERNELS[name].items()
                        if f not in ("run", "plain")}, **k,
@@ -4210,8 +4316,11 @@ def kernel_entries(measured, xprize_launches, stencil_cases, sim_launches,
                for name, k in zip(KERNELS, kernels)]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} never launched on its path")
-    for name in ("ekf3", "ekf6"):
+    for name in ("ekf3", "ekf6", "nnls"):
         check(mesh_launches[name] > 0, f"{name} never launched on the mesh")
+    for path in ("cli", "backtest", "train"):
+        check(kernels[-1][f"{path}_launches"] > 0,
+              f"nnls never launched on the {path} path")
     return kernels
 
 
@@ -4254,7 +4363,7 @@ def main():
             compare_kernel(name, tag, args, device, bounds, timed))
     small_reference_check(device)
     main_res, _, xprize_launches = main_path(device, bt, bf, actual)
-    nnls_counts(device, bt)
+    nnls = nnls_counts(device)
 
     # the spatial stack (slice 2)
     stencil_cases = stencil_phase(device) + multistep_phase(device)
@@ -4290,7 +4399,7 @@ def main():
     kernels = kernel_entries(measured, xprize_launches, stencil_cases,
                              sim_launches, pairwise_cases, cli_launches,
                              backtest, slice5_launches, roofline,
-                             mesh_launches, deploy, example_launches)
+                             mesh_launches, deploy, example_launches, nnls)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

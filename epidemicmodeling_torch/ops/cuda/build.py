@@ -33,6 +33,7 @@ SOURCES = {
     "pairwise": ("pairwise.cu",),
     "roofline": ("roofline.cu",),
     "newcase_ekf": ("newcase_ekf.cu", "newcase_ekf.cuh"),
+    "nnls": ("nnls.cu",),
 }
 # flags of one kernel beside NVCC_FLAGS (keyed into its hash): the
 # deployment artefact's card build must equal its CPU build bit for bit, so

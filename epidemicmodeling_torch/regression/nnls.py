@@ -5,24 +5,47 @@ Counterpart of epidemicmodeling_tpu/regression/nnls.py:86,158: the
 Lawson-Hanson active set (MATLAB ``lsqnonneg``) over a batch of per-region
 problems, and the intercept loop of Tools/TrainPredictPrescribeNPI.m:263-278.
 
-The JAX code nests ``lax.while_loop``s under ``vmap``: every lane iterates
-until all lanes are done, and a finished lane's state is frozen. Here the
-same loops run eagerly: ``while active.any()`` with finished lanes frozen by
-``torch.where``, one host sync per iteration instead of a fixed trip count
-(3p outer x (p+1) inner x 100 intercept steps would be minutes of tiny
-launches on a card). The masked normal-equation solves are batched
-``torch.linalg.cholesky_ex`` + ``cholesky_solve`` over (R, p, p). A singular
-passive set poisons its lane with NaN, never a clamped finite value
-(nnls.py:47-52). Each sync goes through utils.profiling.host_sync, and the
-iterations count as ``nnls.outer``, ``nnls.inner`` and ``nnls.intercept``
-in the recording in force.
+Two routes, chosen by the inputs' device:
+
+- CUDA tensors: one launch of the hand-written kernel
+  (ops/cuda/nnls_kernel.py, csrc/nnls.cu) runs every problem's whole
+  refinement on the card, a block a problem: no host sync and no launch
+  per iteration. It takes float32 and float64 (computing in that dtype) and
+  up to 32 columns, and raises on anything else; there is no fallback.
+- Any other device: the plain version (``nnls_plain``,
+  ``nnls_with_intercept_plain``), eager tensor code that the CPU tests hold
+  against the JAX package. The JAX code nests ``lax.while_loop``s under
+  ``vmap``: every lane iterates until all lanes are done, and a finished
+  lane's state is frozen. Here the same loops run eagerly: ``while
+  active.any()`` with finished lanes frozen by ``torch.where``, one host
+  sync per iteration instead of a fixed trip count. The masked
+  normal-equation solves are batched ``torch.linalg.cholesky_ex`` +
+  ``cholesky_solve`` over (R, p, p). A singular passive set poisons its
+  lane with NaN, never a clamped finite value (nnls.py:47-52). The kernel
+  keeps the same caps, thresholds, stopping rules and NaN semantics.
+
+Counters, in the recording in force (utils/profiling.py):
+
+- plain version: each sync goes through utils.profiling.host_sync
+  (``host_sync``), and the batched loop trips count as ``nnls.outer``,
+  ``nnls.inner`` and ``nnls.intercept`` (a trip counts once however many
+  lanes it runs);
+- kernel: ``host_sync`` gets 0 (the route makes none), each launch counts
+  as ``nnls.launches``, and the kernel's per-problem iteration counts are
+  summed when the recording closes, never on the request's path, into
+  ``nnls.lane_outer``, ``nnls.lane_inner`` and ``nnls.lane_intercept``
+  (totals over the problems: a problem's counts equal a run of the plain
+  version on that problem alone).
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..utils.profiling import count, host_sync
+from ..ops.cuda import nnls_kernel
+from ..utils.profiling import count, count_on_close, host_sync
+
+LANE_COUNTERS = ("nnls.lane_outer", "nnls.lane_inner", "nnls.lane_intercept")
 
 
 def _masked_ls(G, c, P):
@@ -40,16 +63,38 @@ def _masked_ls(G, c, P):
                        torch.full_like(z, float("nan")))
 
 
+def _promoted(X, y):
+    dtype = torch.promote_types(X.dtype, y.dtype)
+    return X.to(dtype), y.to(dtype)
+
+
+def _on_card(X, y, iterations: int):
+    """The kernel's route: (a, b) of nnls_kernel.nnls_intercept, and its
+    counters (see the module docstring)."""
+    a, b, counts = nnls_kernel.nnls_intercept(*_promoted(X, y), iterations)
+    count("host_sync", 0)
+    count_on_close(LANE_COUNTERS, counts)
+    return a, b
+
+
 def nnls(X: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Solve min_x ||X x - y||^2 s.t. x >= 0 for every problem of a batch.
 
     X: (R, n, p) or (n, p); y: (R, n) or (n,). Returns x (R, p) or (p,).
     The tolerance is MATLAB lsqnonneg's, 10 * eps * ||X||_1 * max(n, p), and
-    the outer loop runs at most 3p times."""
+    the outer loop runs at most 3p times. CPU tensors run ``nnls_plain``,
+    others the kernel (the module docstring)."""
     if X.dim() == 2:
         return nnls(X[None], y[None])[0]
-    dtype = torch.promote_types(X.dtype, y.dtype)
-    X, y = X.to(dtype), y.to(dtype)
+    if X.device.type == "cpu":
+        return nnls_plain(X, y)
+    return _on_card(X, y, 0)[0]
+
+
+def nnls_plain(X: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``nnls`` as eager tensor ops on any device, X (R, n, p), y (R, n)."""
+    X, y = _promoted(X, y)
+    dtype = X.dtype
     R, n, p = X.shape
     Xt = X.transpose(-1, -2)
     G = Xt @ X
@@ -115,17 +160,28 @@ def nnls_with_intercept(X: torch.Tensor, y: torch.Tensor,
         else: break
 
     X: (R, n, p) or (n, p); y: (R, n) or (n,). Returns (a (R, p), b (R,))
-    (unbatched: (p,), scalar)."""
+    (unbatched: (p,), scalar). CPU tensors run
+    ``nnls_with_intercept_plain``, others the kernel (the module
+    docstring)."""
     if X.dim() == 2:
         a, b = nnls_with_intercept(X[None], y[None], iterations)
         return a[0], b[0]
-    dtype = torch.promote_types(X.dtype, y.dtype)
-    X, y = X.to(dtype), y.to(dtype)
+    if X.device.type == "cpu":
+        return nnls_with_intercept_plain(X, y, iterations)
+    return _on_card(X, y, iterations)
+
+
+def nnls_with_intercept_plain(X: torch.Tensor, y: torch.Tensor,
+                              iterations: int = 100):
+    """``nnls_with_intercept`` as eager tensor ops on any device, X
+    (R, n, p), y (R, n)."""
+    X, y = _promoted(X, y)
+    dtype = X.dtype
 
     def resid(Xs, ys, a):
         return ys - (Xs @ a[..., None])[..., 0]
 
-    a = nnls(X, y)
+    a = nnls_plain(X, y)
     b = torch.zeros(X.shape[0], dtype=dtype, device=X.device)
     best = torch.sum(resid(X, y, a) ** 2, dim=-1)
     active = torch.ones(X.shape[0], dtype=torch.bool, device=X.device)
@@ -135,7 +191,7 @@ def nnls_with_intercept(X: torch.Tensor, y: torch.Tensor,
             break
         count("nnls.intercept")
         Xs, ys, a_s = X[idx], y[idx], a[idx]
-        a_cand = nnls(Xs, ys - b[idx, None])
+        a_cand = nnls_plain(Xs, ys - b[idx, None])
         r = resid(Xs, ys, a_s)
         b_cand = torch.mean(r, dim=-1)
         err = torch.sum((r - b_cand[:, None]) ** 2, dim=-1)

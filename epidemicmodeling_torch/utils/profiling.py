@@ -25,12 +25,21 @@ the recording that the program's own spans and counters write to.
   present, CUDA activity, with the spans) into a log directory, in place of
   the JAX package's jax_trace.
 
+- ``count_on_close(names, counts)`` adds the column sums of a count
+  tensor a kernel wrote (on the card) to the counters when the recording
+  closes: reading it waits for the device, so it is read there and not on
+  the request's path. ``count(name, 0)`` leaves the counter at 0, so that a
+  route that makes no host sync reads 0 and not an absent counter.
+
 The backtest's spans (``backtest`` > ``backtest.train`` > ``train.init``,
 ``train.ekf3``, ``train.regress``; ``backtest.lanes``, ``backtest.ekf3``,
-``backtest.errors``) and counters (``host_sync``, ``nnls.outer``,
-``nnls.inner``, ``nnls.intercept``, ``lasso.sweeps``) are read by the
-benchmark's per-layer metrics (benchmark/metrics/_spans.py and the readers
-that use it).
+``backtest.errors``) and counters are read by the benchmark's per-layer
+metrics (benchmark/metrics/_spans.py and the readers that use it). The
+counters: ``host_sync``; the NNLS's (regression/nnls.py), on the CPU the
+plain version's batched loop trips ``nnls.outer``, ``nnls.inner`` and
+``nnls.intercept``, on the card the kernel's ``nnls.launches`` and its
+per-problem iterations summed over the problems, ``nnls.lane_outer``,
+``nnls.lane_inner`` and ``nnls.lane_intercept``; ``lasso.sweeps``.
 """
 
 from __future__ import annotations
@@ -67,7 +76,9 @@ class Recording:
     None) and ``request`` (numbered from 0 in the recording: a span without
     a parent starts a new one). ``counters``: name -> total. ``offset_ns``:
     time.time_ns() - time.perf_counter_ns() when the recording began; a
-    span's times plus it are on the profiler's clock."""
+    span's times plus it are on the profiler's clock. The counts of
+    ``count_on_close`` are in ``counters`` once the recording has
+    closed."""
 
     def __init__(self):
         self.spans = []
@@ -75,6 +86,14 @@ class Recording:
         self.offset_ns = time.time_ns() - time.perf_counter_ns()
         self.requests = 0
         self._open = []
+        self._on_close = []
+
+    def _close(self):
+        for names, counts in self._on_close:
+            sums = counts.cpu().reshape(-1, len(names)).sum(0).tolist()
+            for name, n in zip(names, sums):
+                self.counters[name] = self.counters.get(name, 0) + n
+        self._on_close = []
 
 
 class _Span:
@@ -127,6 +146,15 @@ def count(name: str, n: int = 1) -> None:
         rec.counters[name] = rec.counters.get(name, 0) + n
 
 
+def count_on_close(names, counts: torch.Tensor) -> None:
+    """Add the column sums of ``counts`` (an integer tensor (..., len(names))
+    on any device) to the counters ``names`` of the recording in force when
+    it closes; the tensor is read then, not now."""
+    rec = _REC
+    if rec is not None:
+        rec._on_close.append((tuple(names), counts))
+
+
 def host_sync(fn, x):
     """``fn(x)``, a call in which the host waits for a device value
     (``bool`` of a tensor, ``torch.nonzero``), counted once as
@@ -148,6 +176,7 @@ def recording():
         yield rec
     finally:
         _REC = prev
+        rec._close()
 
 
 def _devices(tree) -> set:

@@ -146,3 +146,24 @@ def deploy_sweep_args(eps, seed=0, T_hist=90, T=120):
     sia = deploy_history(u, params, s_init, T_hist)
     return (u, obs, T_hist, params, eps, s_init, Ps_init, s_final, Ps_final,
             Q, R_v, sia)
+
+
+def nnls_problems(seed, R=24, n=40, p=12):
+    """R float64 NNLS problems (X (R, n, p), y (R, n)) in three families:
+    NPI-gap designs (integer levels) against a smoothed-alpha-like target,
+    gaussian designs against a signed truth plus noise, and correlated
+    designs (gaussian mixed by I + 0.8 M) against a signed truth, whose
+    active sets also take the inner loop."""
+    rng = np.random.default_rng(seed)
+    X, y, q = np.empty((R, n, p)), np.empty((R, n)), R // 3
+    X[:q] = rng.integers(0, 5, (q, n, p)).astype(float)
+    y[:q] = 0.2 + 0.01 * rng.standard_normal((q, n)) \
+        - X[:q] @ (0.004 * rng.random(p))
+    X[q:2 * q] = rng.standard_normal((q, n, p))
+    Z = rng.standard_normal((R - 2 * q, n, p))
+    M = np.eye(p) + 0.8 * rng.standard_normal((R - 2 * q, p, p))
+    X[2 * q:] = np.einsum("rnq,rqp->rnp", Z, M)
+    truth = rng.standard_normal((R - q, p))
+    y[q:] = np.einsum("rnp,rp->rn", X[q:], truth) \
+        + 0.1 * rng.standard_normal((R - q, n))
+    return torch.from_numpy(X), torch.from_numpy(y)

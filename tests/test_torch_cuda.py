@@ -32,8 +32,19 @@ host-pointer entries, at lane counts that are and are not multiples of its
 (prescriptions equal, J0 and J1 at rtol 1e-9); 2,000 lanes spread one
 block to an SM, and the host-pointer entry's parts add up to its wall.
 
-The generic EKF/EKS core, the MATLAB-exact pinv, the regressions and the Rt
-estimator have no hand-written kernel: they run as tensor ops on the card
+The NNLS kernel (csrc/nnls.cu, nnls_with_intercept for every region in one
+launch) against its plain version: in float64 on random full-rank batches
+(40 and 800 rows a problem) the same supports,
+coefficients and intercepts within 1e-10 and each problem's iteration
+counts equal to a run of the plain version on that problem alone; in
+float32 on the smoke backtest's round-2 regression (235 x 380 x 12)
+every problem's squared residual within chip_smoke's NNLS_F32_SSE_GAP of
+the plain version's, which certifies any support that differs as
+co-optimal; a collinear passive set gives NaN; its other forms and its
+refusals.
+
+The generic EKF/EKS core, the MATLAB-exact pinv, the other regressions and
+the Rt estimator have no hand-written kernel: they run as tensor ops on the card
 and are held against the same calls on the CPU in float64, at the
 tolerances their CPU tests hold them to against the JAX package.
 """
@@ -50,8 +61,8 @@ from epidemicmodeling_torch.deploy import (native as deploy_native,
                                            newcase_ekf_pareto_sweep_native,
                                            pareto_sweep_plain)
 from epidemicmodeling_torch.ops.cuda import (build, ekf3_kernel, ekf6_kernel,
-                                             pairwise_kernel, roofline_kernel,
-                                             stencil_kernel)
+                                             nnls_kernel, pairwise_kernel,
+                                             roofline_kernel, stencil_kernel)
 from epidemicmodeling_torch.ops.cuda.ekf3_kernel import ekf3, ekf3_plain
 from epidemicmodeling_torch.ops.cuda.ekf6_kernel import ekf6, ekf6_plain
 from epidemicmodeling_torch.ops.cuda.pairwise_kernel import (
@@ -59,22 +70,26 @@ from epidemicmodeling_torch.ops.cuda.pairwise_kernel import (
 from epidemicmodeling_torch.ops.cuda.stencil_kernel import (
     STEPS_PER_LAUNCH, stencil, stencil_plain, stencil_rollout,
     stencil_rollout_plain)
+from epidemicmodeling_torch.regression.nnls import (
+    _masked_ls, nnls, nnls_with_intercept, nnls_with_intercept_plain)
 from epidemicmodeling_torch.spatial import (PopulationSimConfig,
                                             diffusion_rollout,
                                             population_motion_sim)
 from epidemicmodeling_torch.spatial.agents import default_environment
 from epidemicmodeling_torch.spatial.walkers import walking_sources_sim
+from epidemicmodeling_torch.utils.profiling import recording
 
 from chip_smoke import (EKF3_BOUNDS, FILTER_TYPES, LM_COST_RTOL, LM_RTOL,
-                        PAIRWISE_ROW_BOUND,
+                        NNLS_F32_SSE_GAP, PAIRWISE_ROW_BOUND,
+                        backtest_regression, nnls_agreement,
                         SMALL_REF_BOUNDS, copy_check_sizes, copy_into,
                         law_rows, lm_costs,
                         per_capita_case, pinv_ranks_agree, row_err,
                         rt_series, shooting_certificates, small_lstm_parity,
                         sweep_errs)
 from tests._torch_helpers import (deploy_inputs, deploy_sweep_args,
-                                  make_inputs, masked_err, packed_args,
-                                  scaled_err)
+                                  make_inputs, masked_err, nnls_problems,
+                                  packed_args, scaled_err)
 
 pytestmark = pytest.mark.cuda
 
@@ -656,6 +671,110 @@ def test_regressions_on_the_card_match_the_cpu(cuda):
     a_c, b_c = robust_affine_fit_elementwise(X, y)
     torch.testing.assert_close(a_g.cpu(), a_c, rtol=1e-9, atol=1e-12)
     torch.testing.assert_close(b_g.cpu(), b_c, rtol=1e-9, atol=1e-12)
+
+
+@pytest.mark.parametrize("n", [40, 800])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_nnls_kernel_float64_matches_plain(cuda, seed, n):
+    """Float64: the same supports, coefficients and intercepts within 1e-10
+    of the plain version on the card, at 40 and 800 rows a problem. The
+    route makes no host sync and one launch."""
+    X, y = (t.to(cuda) for t in nnls_problems(seed, n=n))
+    with recording() as rec:
+        a, b = nnls_with_intercept(X, y)
+    a_p, b_p = nnls_with_intercept_plain(X, y)
+    assert torch.equal(a > 0, a_p > 0)
+    torch.testing.assert_close(a, a_p, rtol=0, atol=1e-10)
+    torch.testing.assert_close(b, b_p, rtol=0, atol=1e-10)
+    assert rec.counters["host_sync"] == 0
+    assert rec.counters["nnls.launches"] == 1
+
+
+def test_nnls_kernel_counts_equal_per_problem_plain_runs(cuda):
+    """Each problem's outer, inner and intercept iterations equal the
+    plain version's loop trips on that problem alone (float64, CPU), and
+    the recording's lane counters are their totals."""
+    X, y = nnls_problems(2)
+    _, _, counts = nnls_kernel.nnls_intercept(X.to(cuda), y.to(cuda), 100)
+    want = []
+    for r in range(X.shape[0]):
+        with recording() as rec:
+            nnls_with_intercept(X[r:r + 1], y[r:r + 1])
+        want.append([rec.counters.get(k, 0) for k in
+                     ("nnls.outer", "nnls.inner", "nnls.intercept")])
+    assert counts.tolist() == want
+    assert counts[:, 1].sum() > 0          # the inner loop ran
+    with recording() as rec:
+        nnls_with_intercept(X.to(cuda), y.to(cuda))
+    assert [rec.counters[f"nnls.lane_{k}"] for k in
+            ("outer", "inner", "intercept")] == counts.sum(0).tolist()
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_nnls_kernel_float32_at_the_cell(cuda, seed):
+    """Float32 on the smoke backtest's round-2 regression, at the
+    xprize-backtest cell's size (235 x 380 x 12, strided views as the
+    training passes them): every problem's
+    squared residual within NNLS_F32_SSE_GAP of the plain version's on
+    the card, so a support that differs is a co-optimal solution."""
+    X, y = backtest_regression(cuda, seed)
+    assert X.shape == (235, 380, 12) and not y.is_contiguous()
+    got = nnls_with_intercept(X, y)
+    agree = nnls_agreement(X, y, got, nnls_with_intercept_plain(X, y))
+    assert agree["sse_gap"] <= NNLS_F32_SSE_GAP, agree
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_nnls_kernel_collinear_passive_set_poisons_with_nan(cuda, dtype):
+    """The kernel's masked solve on tests/test_torch_nnls.py's collinear
+    passive set (every Cholesky step exact, the second pivot exactly 0):
+    NaN in every column, as _masked_ls; a regular passive set solves as
+    _masked_ls does."""
+    rng = np.random.default_rng(0)
+    X = np.zeros((30, 12))
+    X[:3, 4] = X[:3, 5] = [1.0, 2.0, 2.0]
+    X[3, 1] = 4.0
+    X[:, [0, 2, 3, 6, 7, 8, 9, 10, 11]] = rng.standard_normal((30, 9))
+    y = rng.standard_normal(30)
+    G = torch.tensor(X.T @ X, dtype=dtype, device=cuda)[None]
+    c = torch.tensor(X.T @ y, dtype=dtype, device=cuda)[None]
+    P = torch.zeros((1, 12), dtype=torch.bool, device=cuda)
+    P[0, [1, 4, 5]] = True
+    assert torch.isnan(nnls_kernel.masked_solve(G, c, P)).all()
+    assert torch.isnan(_masked_ls(G, c, P)).all()
+    P[0, 5] = False
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    torch.testing.assert_close(nnls_kernel.masked_solve(G, c, P),
+                               _masked_ls(G, c, P), rtol=tol, atol=tol)
+
+
+def test_nnls_kernel_forms_and_refusals(cuda):
+    """iterations = 0 is nnls; the unbatched form is the batch of one; p =
+    32 (a lane each) matches the plain version; a side stream is taken;
+    p = 33, float16 and a CPU tensor on the card's route are refused."""
+    X, y = (t.to(cuda) for t in nnls_problems(3, R=6))
+    a0, b0 = nnls_with_intercept(X, y, iterations=0)
+    assert torch.equal(a0, nnls(X, y)) and not b0.any()
+    a, b = nnls_with_intercept(X, y)
+    a1, b1 = nnls_with_intercept(X[2], y[2])
+    assert torch.equal(a1, a[2]) and torch.equal(b1, b[2])
+    torch.testing.assert_close(nnls(X[2], y[2]), nnls_with_intercept_plain(
+        X[2:3], y[2:3], 0)[0][0], rtol=0, atol=1e-10)
+    X32, y32 = (t.to(cuda) for t in nnls_problems(4, R=3, n=60, p=32))
+    side = torch.cuda.Stream(cuda)
+    with torch.cuda.stream(side):
+        a32, b32 = nnls_with_intercept(X32, y32)
+    side.synchronize()
+    a32_p, b32_p = nnls_with_intercept_plain(X32, y32)
+    torch.testing.assert_close(a32, a32_p, rtol=0, atol=1e-10)
+    torch.testing.assert_close(b32, b32_p, rtol=0, atol=1e-10)
+    X33, y33 = (t.to(cuda) for t in nnls_problems(4, R=3, n=60, p=33))
+    with pytest.raises(ValueError, match="1 to 32 columns"):
+        nnls_with_intercept(X33, y33)
+    with pytest.raises(ValueError, match="float32 or float64"):
+        nnls_with_intercept(X.half(), y.half())
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        nnls_kernel.nnls_intercept(X, y.cpu(), 100)
 
 
 @pytest.mark.parametrize("order", [1, 2])

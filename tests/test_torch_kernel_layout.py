@@ -7,7 +7,8 @@ stays within the card's limits; a plain emulation of the kernel's
 summation order (per-chunk partial sums in source order, then the chunks
 in order) agrees with the plain force law row by row at chip_smoke's
 bound; ekf6's team layout gives every lane one thread per matrix row, and
-its backward's pipelined factor forms every row once and in time. The
+its backward's pipelined factor forms every row once and in time; the
+NNLS kernel's blocks at the backtest's size fit one wave. The
 constants and index expressions these restate, and the Jacobian's nonzeros
 that chip_smoke's operation count assumes, are read from the CUDA sources,
 so the two cannot drift apart.
@@ -22,7 +23,7 @@ import torch
 
 from chip_smoke import JAC_NNZ, PAIRWISE_ROW_BOUND, law_rows, row_err
 from epidemicmodeling_torch.ops.cuda import (ekf3_kernel, ekf6_kernel,
-                                             pairwise_kernel)
+                                             nnls_kernel, pairwise_kernel)
 from epidemicmodeling_torch.ops.cuda.pairwise_kernel import (
     MAX_CHUNK, MIN_BLOCKS_PER_SM, SMS, pair_terms, pairwise_geometry)
 from epidemicmodeling_torch.spatial import PopulationSimConfig
@@ -494,3 +495,25 @@ def _ring_schedule(T, chunk, slots, forward):
 def test_ekf3_rings_never_overwrite_unread_chunks(T):
     for forward in (True, False):
         _ring_schedule(T, ekf3_kernel.CHUNK, ekf3_kernel.SLOTS, forward)
+
+
+def test_nnls_constants_match_the_source():
+    for name in ("THREADS", "MAX_P"):
+        assert _constant("nnls.cu", name) == getattr(nnls_kernel, name), name
+    assert nnls_kernel.MAX_P == 32      # a column a lane of one warp
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_nnls_blocks_fit_one_wave_at_the_backtest_size(itemsize):
+    """235 regions, a block each: the blocks an SM holds (its shared
+    memory over a block's static p x p matrices, vectors and partial sums
+    with 1 KiB reserved, and its threads) cover the 235 blocks in one wave
+    on SMS SMs, whatever the days, which the block reads from device
+    memory."""
+    R = 235
+    P = nnls_kernel.MAX_P
+    static = (2 * P * (P + 1) + 3 * P + nnls_kernel.THREADS // 32) * itemsize
+    assert static == {4: 8864, 8: 17728}[itemsize]     # ptxas on sm_90a
+    fit = min(SMEM_PER_SM // (static + 1024),
+              THREADS_PER_SM // nnls_kernel.THREADS)
+    assert fit >= 2 and -(-R // fit) <= SMS

@@ -3,6 +3,9 @@ profiling.py) on the CPU: off, a span or count site does nothing but test
 one flag; on, a small backtest gives the same outputs bit for bit, the span
 tree of its stages, and host syncs that cover the NNLS's iterations; under
 torch.profiler the spans are host ranges around the operators they hold.
+CPU tensors take the NNLS's plain version (its counters exactly as before);
+other devices take the kernel's route, which refuses what it cannot take;
+counts deferred to the recording's close are summed there.
 The benchmark's readers of them are tested in benchmark/tests/."""
 
 import json
@@ -19,9 +22,11 @@ from epidemicmodeling_torch.data import (NPI_MAXES_DEFAULT,
                                          synthetic_oxford_frame)
 from epidemicmodeling_torch.pipelines import (PipelineConfig,
                                               forecast_quality_assessment)
+from epidemicmodeling_torch.ops.cuda import nnls_kernel
 from epidemicmodeling_torch.regression.nnls import nnls, nnls_with_intercept
 from epidemicmodeling_torch.utils import profiling
 from epidemicmodeling_torch.utils.profiling import (StageTimer, count,
+                                                    count_on_close,
                                                     host_sync, recording,
                                                     span, torch_trace)
 
@@ -189,6 +194,49 @@ def test_host_syncs_equal_a_hand_count():
         nnls_with_intercept(X, y)
     assert rec.counters == {"host_sync": 12, "nnls.outer": 4,
                             "nnls.intercept": 1}
+
+
+def test_cpu_tensors_take_the_plain_version(monkeypatch):
+    def refuse(*_a, **_k):
+        raise AssertionError("CPU tensors took the kernel's route")
+
+    monkeypatch.setattr(nnls_kernel, "nnls_intercept", refuse)
+    X = torch.eye(2, dtype=torch.float64)
+    y = torch.tensor([1.0, 2.0], dtype=torch.float64)
+    with recording() as rec:
+        assert nnls(X, y).tolist() == [1.0, 2.0]
+        nnls_with_intercept(X, y)
+    assert rec.counters == {"host_sync": 17, "nnls.outer": 6,
+                            "nnls.intercept": 1}
+
+
+@pytest.mark.parametrize("shape,dtype,match", [
+    ((2, 5, 12), torch.float32, "must be a CUDA tensor"),
+    ((2, 5, 33), torch.float64, "1 to 32 columns"),
+    ((2, 5, 12), torch.float16, "float32 or float64")])
+def test_other_devices_take_the_kernel_or_raise(shape, dtype, match):
+    """A tensor off the CPU goes to the kernel's route, which raises on
+    what the kernel cannot take: there is no fallback to the plain
+    version."""
+    X = torch.empty(shape, dtype=dtype, device="meta")
+    y = torch.empty(shape[:2], dtype=dtype, device="meta")
+    for fn in (nnls, nnls_with_intercept):
+        with pytest.raises(ValueError, match=match):
+            fn(X, y)
+
+
+def test_count_on_close_sums_when_the_recording_closes():
+    counts = torch.tensor([[1, 2], [3, 4]], dtype=torch.int32)
+    with recording() as rec:
+        count_on_close(("a", "b"), counts)
+        count("host_sync", 0)
+        assert rec.counters == {"host_sync": 0}
+        counts[0, 0] = 10           # read at the close, not when counted
+    assert rec.counters == {"host_sync": 0, "a": 13, "b": 6}
+    count_on_close(("a", "b"), counts)      # off: nothing is held
+    with recording() as rec:
+        pass
+    assert rec.counters == {}
 
 
 def test_spans_enclose_the_nnls_operators_under_the_profiler(batch):
