@@ -24,7 +24,15 @@ CUDA toolkit (nvcc). In order, it:
 5. drives run_pipeline at the XPRIZE size (235 regions, 440 training days
    plus a 92-day horizon, 250 epsilons in chunks of 25, 500 Monte-Carlo
    schedules) cold then warm, counts the kernel launches of the warm run and
-   checks its outputs (one ekf3 launch per ekf3 call); then holds the NNLS
+   checks its outputs (one ekf3 launch per ekf3 call); then the same
+   request in float64, as the MATLAB reference computes it, cold then warm:
+   the normal path launches the kernels' double instances (4 ekf3, 10
+   ekf6 a request, the kernels line's f64_launches), every output float64
+   and bang-bang, with the recording's count of non-finite smoothed
+   costates; each double launch of the warm run is held on its own inputs
+   against the plain version in float64 (F64_BOUND on the lanes the plain
+   version's card and CPU runs agree on, and its spread elsewhere) and
+   both are timed (the kernels line's f64 entries); then holds the NNLS
    kernel against its plain version on the round-2 regression of the
    xprize-backtest cell's training (235 x 380 x 12, float32), times both
    and logs the kernel's iteration totals and launches;
@@ -551,6 +559,45 @@ DEPLOY_CPU_RTOL, DEPLOY_PLAIN_RTOL = 1e-12, 1e-9
 DEPLOY_MIN_SMS = 120
 # the card's float64 peak outside the tensor cores (H100 SXM data sheet)
 PEAK_F64_PER_S = 34e12
+# f64_path: each launch of the kernels' double instances in the warm
+# float64 run_pipeline, held on its own inputs against the plain version in
+# float64 on the card. The two differ in the order of the operations and in
+# nvcc's fused multiply-adds: a few ulps a step where a lane is well posed.
+# Over 532 days most sweep lanes are not (their smoother's P- fixed only to
+# cond * eps: the smoothed costates of two correct runs part by up to 1e12
+# scaled, and the reference's card and CPU runs prescribe differently in
+# ~6% of the cells, PERF.md), so the plain version of each launch also
+# runs on the CPU and on the card on inputs one ulp off (ulp_perturbed).
+# Each output (F64_OUTPUTS: ekf3's S_SMOOTH and S_PLUS; ekf6's S_PLUS,
+# S_SMOOTH's epidemic states and its costates) is held:
+# - on its well-posed lanes, those where both runs agree with the plain
+#   version on it within F64_WELL_POSED (scaled, |a - b| / (|b| + 1),
+#   every cell finite in both) and, for ekf6's smoothed states, whose
+#   smoothed costates are finite in all three, at F64_BOUND (the card
+#   tests' bound, tests/test_torch_cuda.py), lane by lane: a fault
+#   confined to a block or a chunk of lanes shows there. The CPU run alone
+#   does not find every lane that rounding decides: it shares the plain
+#   version's order of operations, so it can round alike where the kernel
+#   does not (where a costate overflows, the law's NaN semantics set the
+#   states; and on lanes of 2 of the 10 sweep chunks the kernel's states
+#   read 0.53 from the plain version's while its CPU run agreed within
+#   1e-12, on an NVIDIA H100);
+# - over every lane, the filtered states S_PLUS at F64_BOUND (the forward
+#   filter is well posed: the plain version's card and CPU runs read
+#   <= 3.3e-12 apart on every lane, on an NVIDIA H100), the smoothed
+#   outputs at the larger of F64_BOUND and F64_SPREAD_FACTOR times the
+#   CPU run's distance (the card tests' factor for ill-conditioned
+#   lanes), as are the shares of cells finite on one side only and (ekf6)
+#   of prescribed cells that differ, over every lane and over the lanes
+#   whose costates are well posed.
+# Each mutant of the plain outputs (lanes one region over, one epsilon
+# over, one day over; one block of 32 lanes one day over in every output,
+# and in the smoothed outputs only) must exceed a bound.
+F64_BOUND, F64_WELL_POSED, F64_SPREAD_FACTOR = 1e-10, 1e-12, 3
+# name: (output, first row, end row)
+F64_OUTPUTS = {"ekf3": {"s_plus": (1, 0, 3), "s_smooth": (0, 0, 3)},
+               "ekf6": {"s_plus": (2, 0, 6), "s_smooth_states": (0, 0, 3),
+                        "s_smooth_costates": (0, 3, 6)}}
 # slice 9: the example drivers (epidemicmodeling_torch/examples/), each
 # through its main on the card (device=None) and again with device="cpu"
 # from the same draws (the drivers draw on CPU generators), each in a
@@ -709,25 +756,28 @@ def other_launches(n: dict) -> dict:
     return {k: v for k, v in n.items() if k != "nnls"}
 
 
-def bound(nbytes: float, ops: float):
+def bound(nbytes: float, ops: float, peak: float = PEAK_F32_PER_S):
     """(least time in ms, what sets it): the bytes over the card's memory
-    rate or the float32 operations over its peak, whichever is larger."""
+    rate or the operations over ``peak`` (float32 by default), whichever
+    is larger."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_F32_PER_S * 1e3
+    t_ops = ops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def ekf_bound(name: str, T: int, B: int):
+def ekf_bound(name: str, T: int, B: int, word: int = 4):
     """Bound of one ekf3 / ekf6 call at (T, B): every input read once and
-    every returned output written once, float32."""
+    every returned output written once, in words of ``word`` bytes (4:
+    float32 at its peak; 8: float64 at PEAK_F64_PER_S)."""
     if name == "ekf3":
         per_tb = 12 + 2 + 3 * 3        # u, x, Rv; S_SMOOTH, S_PLUS, S_MINUS
         per_b = 11 + 2 * 12 + 3 + 9 + 3 + 9
     else:
         per_tb = 12 + 2 + 6 + 12 + 6   # u, x, Rv; S_SMOOTH, U_SM, S_PLUS
         per_b = 14 + 4 * 12 + 6 + 36 + 6 + 36
-    return bound(4 * (T * B * per_tb + B * per_b),
-                 EKF_OPS_PER_LANE_STEP[name] * T * B)
+    return bound(word * (T * B * per_tb + B * per_b),
+                 EKF_OPS_PER_LANE_STEP[name] * T * B,
+                 PEAK_F64_PER_S if word == 8 else PEAK_F32_PER_S)
 
 
 def per_capita_case(active: bool):
@@ -986,6 +1036,246 @@ def main_path(device, bt, bf, actual):
     check(launches["nnls"] == 2, f"nnls launched {launches['nnls']} times, "
                                  "one a training regression expected")
     return res, wall, launches
+
+
+def f64_path(device, bt, bf, actual):
+    """run_pipeline at the XPRIZE size in float64 (the MATLAB reference's
+    precision), cold then warm: the caller's dtype reaches the kernels, so
+    the normal path launches their double instances. Checks the launches
+    (4 ekf3, one ekf6 a chunk, 2 NNLS), that every output is float64 and
+    every prescribed cell u_min or u_max, and logs the walls, the stages
+    and the recording's ekf6.costate_nonfinite (the reference's smoothed
+    costates not finite, a share of those the sweep forms). Then holds
+    each double launch of the warm run on its own inputs (f64_lane_holds)
+    and times both instances and their plain versions on the largest.
+    Returns {kernel: the kernels line's f64 entry}."""
+    cfg = PipelineConfig(backend="pallas", smoother_gain="solve",
+                         pareto_chunk=CHUNK, num_monte_carlo=N_MC)
+    eps = epsilon_grid(N_EPS).numpy()
+    rec_launches = []
+
+    def spy(real, kn):
+        def call(*a, **k):
+            out = real(*a, **k)
+            rec_launches.append((kn, a, k, out))
+            return out
+        return call
+
+    real3, real6 = ekf3_kernel.ekf3, ekf6_kernel.ekf6
+    for run_tag in ("cold", "warm"):
+        reset_launches()
+        if run_tag == "warm":
+            ekf3_kernel.ekf3 = spy(real3, "ekf3")
+            ekf6_kernel.ekf6 = spy(real6, "ekf6")
+        try:
+            with recording() as rec:
+                t0 = time.perf_counter()
+                res = run_pipeline(bt, bf, actual, T_HIST, WEIGHTS, eps,
+                                   MINS, NPI_MAXES_DEFAULT, T_HIST, cfg,
+                                   generator=torch.Generator().manual_seed(0),
+                                   dtype=torch.float64, device=device)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            ekf3_kernel.ekf3, ekf6_kernel.ekf6 = real3, real6
+        launches = read_launches()
+        c = rec.counters
+        share = c["ekf6.costate_nonfinite"] / (
+            3 * (T_HIST + HORIZON) * c["ekf6.lanes"])
+        stages = " ".join(f"{k}={v:.3f}s" for k, v in
+                          res.stage_seconds.items())
+        log(f"float64 main path {run_tag}: wall={wall:.3f}s {stages} "
+            f"launches={launches} ekf6.lanes={c['ekf6.lanes']} "
+            f"ekf6.costate_nonfinite={c['ekf6.costate_nonfinite']} "
+            f"({share:.4%} of the smoothed costates)")
+    check(launches["ekf3"] == 4 and launches["ekf6"] == -(-N_EPS // CHUNK)
+          and launches["nnls"] == 2,
+          f"float64 main path: launches {launches}")
+    check([kn for kn, *_ in rec_launches].count("ekf6") == launches["ekf6"]
+          and len(rec_launches) == launches["ekf3"] + launches["ekf6"],
+          "float64 main path: a launch went round the wrappers")
+    check(all(t.dtype == torch.float64 for t in all_tensors(res)
+              if t.is_floating_point()),
+          "float64 main path: an output is not float64")
+    u = res.pareto["u_prescribed"]
+    hi = to_tensor(NPI_MAXES_DEFAULT, torch.float64, device)
+    check(bool(((u == 0) | (u == hi)).all()),
+          "float64 main path: a prescribed cell is neither u_min nor u_max")
+    log(f"float64 main path: u_max share at eps={eps[0]:.0e} "
+        f"{float((u[0] == hi).double().mean()):.4f}, at eps={eps[-1]:.6f} "
+        f"{float((u[-1] == hi).double().mean()):.4f}; peak device memory "
+        f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB")
+    del res
+    fails = []
+    holds = f64_lane_holds(rec_launches, fails)
+    check(not fails, "float64 main path: " + "; ".join(fails))
+    entries = {}
+    for kn in ("ekf3", "ekf6"):
+        mine = [h for h in holds if h["kernel"] == kn]
+        _, a, k, _ = max((r for r in rec_launches if r[0] == kn),
+                         key=lambda r: r[1][0].shape[0] * r[1][0].shape[-1])
+        T, B = a[0].shape[0], a[0].shape[-1]
+        ms = cuda_ms(lambda: KERNELS[kn]["run"](*a, **k))
+        plain_ms = cuda_ms(lambda: KERNELS[kn]["plain"](*a, **k), reps=3)
+        b_ms, b_by = ekf_bound(kn, T, B, word=8)
+        errs = {n: max(h["errs"][n] for h in mine) for n in mine[0]["errs"]}
+        entries[kn] = dict(
+            launches=launches[kn], shape=f"T={T} B={B} float64", ms=ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, errs=errs,
+            well_posed_share={n: min(h["well_posed_share"][n] for h in mine)
+                              for n in mine[0]["well_posed_share"]})
+        log(f"kernel {kn} [float64 main path, {len(mine)} launches held] "
+            f"T={T} B={B}: kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} "
+            f"bound_ms={b_ms:.4f} ({b_by}, 8-byte words, "
+            f"{PEAK_F64_PER_S / 1e12:.0f} TFLOP/s); largest errors "
+            + " ".join(f"{n}={v:.3e}" for n, v in errs.items()))
+    return entries
+
+
+def lane_errs(a, b):
+    """Per lane (the last axis): the largest scaled error |a - b| / (|b| +
+    1) over the cells finite in both, and whether every cell is finite in
+    both; and the share of cells finite in one only."""
+    fa, fb = torch.isfinite(a), torch.isfinite(b)
+    both = fa & fb
+    d = torch.where(both, torch.abs(a - b) / (torch.abs(b) + 1.0),
+                    torch.zeros_like(a))
+    flat = lambda x: x.reshape(-1, x.shape[-1])
+    return (flat(d).amax(0), flat(both).all(0),
+            float((fa != fb).double().mean()))
+
+
+def f64_lane_numbers(kn, got, ref, wells):
+    """The held numbers of ``got`` against ``ref``: each output's
+    (F64_OUTPUTS) largest error over its lanes ``wells[name]`` and over
+    every lane and its share of cells finite on one side only; for ekf6
+    the share of prescribed cells (rows T_HIST .. T-2) that differ, over
+    every lane and over the lanes whose costates are well posed."""
+    e = {}
+    for n, (j, lo, hi) in F64_OUTPUTS[kn].items():
+        err, _, mismatch = lane_errs(got[j][:, lo:hi], ref[j][:, lo:hi])
+        w = wells[n]
+        e[n + "_well_posed"] = float(err[w].max()) if bool(w.any()) else 0.0
+        e[n] = float(err.max())
+        e[n + "_nonfinite_mismatch"] = mismatch
+    if kn == "ekf6":
+        diff = got[1][T_HIST:-1] != ref[1][T_HIST:-1]
+        e["u_diff"] = float(diff.double().mean())
+        w = wells["s_smooth_costates"]
+        e["u_diff_well_posed"] = float(diff[..., w].double().mean()) \
+            if bool(w.any()) else 0.0
+    return e
+
+
+def f64_bound(name: str, spread: float) -> float:
+    """The bound of a held number of f64_lane_numbers, from the same number
+    of the plain version's card run against its CPU run."""
+    if name.endswith("_well_posed") and not name.startswith("u_diff"):
+        return F64_BOUND
+    if name == "s_plus":
+        return F64_BOUND
+    floor = 0.0 if "diff" in name or "mismatch" in name else F64_BOUND
+    return max(floor, F64_SPREAD_FACTOR * spread)
+
+
+def ulp_perturbed(args, seed=0):
+    """Every value of ``args`` moved up or down, at random, by the dtype's
+    epsilon relative (a value 0 or NaN stays): the inputs as rounding could
+    have left them."""
+    g = torch.Generator(device=args[0].device).manual_seed(seed)
+    sign = lambda a: (2 * torch.randint(0, 2, a.shape, generator=g,
+                                        device=a.device) - 1).to(a.dtype)
+    return [a * (1 + sign(a) * torch.finfo(a.dtype).eps) for a in args]
+
+
+def f64_lane_holds(launches, fails):
+    """Each recorded double ekf3 / ekf6 launch, (kernel, arguments,
+    keywords, outputs), against the plain version on the same inputs on
+    the card, held as F64_BOUND's comment says; the plain version's runs on
+    the CPU and on inputs one ulp off set the well-posed lanes, the CPU run
+    the spread bounds. Each mutant must exceed a bound. Returns the
+    readings, one a launch."""
+    out = []
+    for i, (kn, args, kw, got) in enumerate(launches):
+        plain = KERNELS[kn]["plain"]
+        ref = plain(*args, **kw)
+        dev = ref[0].device
+        others = [[r.to(dev) for r in plain(*(a.cpu() for a in args), **kw)],
+                  list(plain(*ulp_perturbed(args, i), **kw))]
+        T, B = args[0].shape[0], args[0].shape[-1]
+        wells, agree = {}, {}
+        for n, (j, lo, hi) in F64_OUTPUTS[kn].items():
+            ok = []
+            for o in others:
+                err, finite, _ = lane_errs(ref[j][:, lo:hi], o[j][:, lo:hi])
+                ok.append(finite & (err <= F64_WELL_POSED))
+            wells[n], agree[n] = ok[0] & ok[1], ok[0]
+        note = ""
+        if kn == "ekf6":
+            costates = torch.ones_like(wells["s_plus"])
+            for o in others:
+                costates &= lane_errs(ref[0][:, 3:], o[0][:, 3:])[1]
+            states = "s_smooth_states"
+            wells[states] &= costates
+            # lanes that the CPU run passes and a rounding of the inputs
+            # does not, and their epsilons
+            moved = agree[states] & ~wells[states]
+            eps = args[3][4][moved]
+            note = (f" (states that rounding moves, or costates not finite: "
+                    f"{int(moved.sum())} lanes" + (
+                        f", epsilon {float(eps.min()):.17g} .. "
+                        f"{float(eps.max()):.17g}" if eps.numel() else "")
+                    + ")")
+        # two correct runs' distance: the CPU run's (the run on inputs one
+        # ulp off answers other inputs: it prescribes ~18% of the cells
+        # otherwise, three times as many)
+        spread = f64_lane_numbers(kn, ref, others[0], wells)
+        bounds = {n: f64_bound(n, v) for n, v in spread.items()}
+        e = f64_lane_numbers(kn, got, ref, wells)
+        tag = f"{kn} launch {i} T={T} B={B}"
+        for n, b in bounds.items():
+            if not e[n] <= b:
+                fails.append(f"{tag} {n} {e[n]:.3e} > {b:.3e}")
+        R = R_REGIONS
+        smoothed = [j for n, (j, _, _) in F64_OUTPUTS[kn].items()
+                    if n.startswith("s_smooth")][:1]
+        w = wells["s_smooth_states" if kn == "ekf6" else "s_smooth"]
+        b0 = int(torch.nonzero(w)[0]) if bool(w.any()) else 0
+
+        def block_day_off(outs, only=None, b0=b0):
+            res = []
+            for j, x in enumerate(outs):
+                y = x
+                if only is None or j in only:
+                    y = x.clone()
+                    y[..., b0:b0 + 32] = torch.roll(x[..., b0:b0 + 32], 1,
+                                                    dims=0)
+                res.append(y)
+            return res
+        each = lambda f: lambda outs: [f(x) for x in outs]
+        shift = {"regions_rolled": each(lambda x: torch.roll(x, 1, dims=-1)),
+                 "day_off": each(lambda x: torch.roll(x, 1, dims=0)),
+                 "block_day_off": block_day_off,
+                 "block_day_off_smoothed": lambda outs: block_day_off(
+                     outs, smoothed)}
+        if kn == "ekf6" and B > R:
+            shift["epsilon_off"] = each(lambda x: torch.roll(x, R, dims=-1))
+        mutants = {}
+        for m, f in shift.items():
+            mutants[m] = f64_lane_numbers(kn, got, f(list(ref)), wells)
+            if not any(mutants[m][n] > b for n, b in bounds.items()):
+                fails.append(f"{tag}: mutant {m} reads {mutants[m]}, within "
+                             f"the bounds {bounds}")
+        shares = {n: float(w.double().mean()) for n, w in wells.items()}
+        log(f"f64 hold {tag}: well-posed lanes "
+            + " ".join(f"{n} {v:.4f}" for n, v in shares.items())
+            + note + "; "
+            + " ".join(f"{n}={e[n]:.3e} (bound {bounds[n]:.3e})"
+                       for n in e))
+        out.append(dict(kernel=kn, T=T, B=B, errs=e, bounds=bounds,
+                        spread=spread, well_posed_share=shares,
+                        mutants=mutants))
+    return out
 
 
 def device_time(run, wall):
@@ -4230,7 +4520,8 @@ def examples_phase(device):
 
 def kernel_entries(measured, xprize_launches, stencil_cases, sim_launches,
                    pairwise_cases, cli_launches, backtest, slice5_launches,
-                   roofline, mesh_launches, deploy, example_launches, nnls):
+                   roofline, mesh_launches, deploy, example_launches, nnls,
+                   f64):
     """One entry per kernel for the JSON line: its launches on its path's
     warm run, its largest error against the plain version, and kernel,
     plain-version, bound and library times at its largest timed shape
@@ -4240,7 +4531,10 @@ def kernel_entries(measured, xprize_launches, stencil_cases, sim_launches,
     example_launches, slice 9's launches per driver on the card
     (examples_launches, the drivers that launched the kernel); nnls,
     nnls_counts' measurements, with its launches on the warm main-path,
-    CLI, backtest, trainer and mesh runs. Fails if a kernel never launched
+    CLI, backtest, trainer and mesh runs; f64, f64_path's entries for the
+    double instances of ekf3 and ekf6 (their launches on the warm float64
+    run_pipeline as f64_launches; their times, bound and largest errors
+    held on that run's launches as f64). Fails if a kernel never launched
     on its path."""
     kernels = []
     for name in ("ekf3", "ekf6"):
@@ -4254,6 +4548,9 @@ def kernel_entries(measured, xprize_launches, stencil_cases, sim_launches,
             path="run_pipeline (XPRIZE size, warm)",
             shape=f"T={big['T']} B={big['B']} ({big['tag']})"))
         kernels[-1]["cli_launches"] = cli_launches[name]
+        kernels[-1]["f64_launches"] = f64[name]["launches"]
+        kernels[-1]["f64"] = {k: v for k, v in f64[name].items()
+                              if k != "launches"}
         if name == "ekf6":
             kernels[-1]["prescribe_launches"] = \
                 slice5_launches["prescribe"][name]
@@ -4363,6 +4660,7 @@ def main():
             compare_kernel(name, tag, args, device, bounds, timed))
     small_reference_check(device)
     main_res, _, xprize_launches = main_path(device, bt, bf, actual)
+    f64 = f64_path(device, bt, bf, actual)
     nnls = nnls_counts(device)
 
     # the spatial stack (slice 2)
@@ -4399,7 +4697,8 @@ def main():
     kernels = kernel_entries(measured, xprize_launches, stencil_cases,
                              sim_launches, pairwise_cases, cli_launches,
                              backtest, slice5_launches, roofline,
-                             mesh_launches, deploy, example_launches, nnls)
+                             mesh_launches, deploy, example_launches, nnls,
+                             f64)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -15,10 +15,13 @@ parallel (J does not depend on the smoothed states), and the backward
 recursion left on the chain is a few operations a step. ``ekf3_geometry``
 restates the kernel's choice of lanes a block.
 
-``ekf3`` launches the kernel for CUDA tensors (float32, contiguous) and
-raises on anything it cannot take. For CPU tensors it runs ``ekf3_plain``,
-the same computation on the port's batch-last core, in the inputs' dtype.
-``launches`` counts the kernel launches (one per call).
+``ekf3`` launches the kernel for CUDA tensors (contiguous, all float32 or
+all float64: the dtype picks the kernel's float or double instance,
+``card_entry``) and raises on anything it cannot take. For CPU tensors it
+runs ``ekf3_plain``, the same computation on the port's batch-last core, in
+the inputs' dtype. ``launches`` counts the kernel launches (one per call),
+which the recording in force (utils/profiling.py) also counts as
+``ekf3.launches``.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from typing import NamedTuple
 import torch
 
 from ..ekf_bl import ekf_smoother_bl
+from ...utils.profiling import count
 from ...models.batch_last import si_alpha_ekf_system_bl
 from . import build as _build
 from .shard import map_lanes
@@ -55,10 +59,25 @@ RREC = 15
 
 launches = 0
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_F, _D = ctypes.c_float, ctypes.c_double
 _SIGNATURES = {
     "ekf3_smoother": [_P] * 12 + [_I, _I, _F, _I, _F, _F, _I, _P],
+    "ekf3_smoother_f64": [_P] * 12 + [_I, _I, _D, _I, _D, _D, _I, _P],
 }
+# the dtypes the kernels take: the suffix of each instance's C entries
+# (none for the float one)
+INSTANCES = {torch.float32: "", torch.float64: "_f64"}
+
+
+def card_entry(entry: str, dtype) -> str:
+    """The C entry ``entry`` of the instance that ``dtype`` picks: the
+    float instance for float32, the double one for float64. Raises on any
+    other dtype: the card runs the caller's precision or none."""
+    if dtype not in INSTANCES:
+        raise ValueError(f"the EKS kernels take float32 or float64 (got "
+                         f"{dtype})")
+    return entry + INSTANCES[dtype]
 
 
 class Ekf3Geometry(NamedTuple):
@@ -69,17 +88,19 @@ class Ekf3Geometry(NamedTuple):
     hist_floats: int    # the device-memory scratch otherwise (T * REC * B)
 
 
-def ekf3_geometry(T: int, B: int) -> Ekf3Geometry:
-    """csrc/ekf3.cu's launch shape for (T, B): as many lanes a block as
+def ekf3_geometry(T: int, B: int, itemsize: int = 4) -> Ekf3Geometry:
+    """csrc/ekf3.cu's launch shape for (T, B) in the instance whose values
+    take ``itemsize`` bytes (4: float, 8: double): as many lanes a block as
     their step records fit in SMEM_LIMIT (at most MAX_LANES), as long as the
     blocks fit in one wave on SMS SMs; else MAX_LANES lanes a block with the
     records in a scratch, read back through a ring of SLOTS x CHUNK rows."""
     ring = SLOTS * CHUNK * NIN
-    fit = min(MAX_LANES, SMEM_LIMIT // (4 * (ring + T * REC)))
+    fit = min(MAX_LANES, SMEM_LIMIT // (itemsize * (ring + T * REC)))
     smem_hist = fit >= 1 and -(-B // fit) <= SMS
     lanes = fit if smem_hist else MAX_LANES
     per_lane = ring + (T * REC if smem_hist else SLOTS * CHUNK * RREC)
-    return Ekf3Geometry(lanes, -(-B // lanes), smem_hist, 4 * lanes * per_lane,
+    return Ekf3Geometry(lanes, -(-B // lanes), smem_hist,
+                        itemsize * lanes * per_lane,
                         0 if smem_hist else T * REC * B)
 
 
@@ -95,18 +116,21 @@ def check_options(obs_type, beta, inv_monitor_len):
 
 
 def check_kernel_args(named: dict, shapes: dict) -> torch.device:
-    """Every tensor CUDA, float32, contiguous, on one device, with the
-    expected shape. Returns the device."""
-    dev = None
+    """Every tensor CUDA, contiguous, on one device, of one dtype the
+    kernels take (float32 or float64), with the expected shape. Returns the
+    device."""
+    dev = dtype = None
     for name, t in named.items():
         if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
             raise ValueError(f"{name} must be a CUDA tensor")
         if dev is None:
-            dev = t.device
+            dev, dtype = t.device, t.dtype
+            card_entry("", dtype)
         elif t.device != dev:
             raise ValueError(f"{name} is on {t.device}, expected {dev}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name} must be float32 (got {t.dtype})")
+        if t.dtype != dtype:
+            raise ValueError(f"{name} is {t.dtype}, expected {dtype} (one "
+                             "dtype for every input)")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if tuple(t.shape) != shapes[name]:
@@ -168,24 +192,26 @@ def ekf3(u, x, Rv, scal, vecs, s_init, Ps_init, s_final, Ps_final,
         vecs=(2, NPI, B), s_init=(M3, B), Ps_init=(M3 * M3, B),
         s_final=(M3, B), Ps_final=(M3 * M3, B)))
     lib = _build.load("ekf3", _SIGNATURES)
-    out = dict(dtype=torch.float32, device=dev)
+    entry = card_entry("ekf3_smoother", u.dtype)
+    out = dict(dtype=u.dtype, device=dev)
     S_MINUS = torch.empty((T, M3, B), **out)
     S_PLUS = torch.empty((T, M3, B), **out)
     S_SMOOTH = torch.empty((T, M3, B), **out)
-    g = ekf3_geometry(T, B)
+    g = ekf3_geometry(T, B, u.element_size())
     hist = torch.empty((T, REC, B), **out) if g.hist_floats else None
     global launches
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.ekf3_smoother(
+        code = getattr(lib, entry)(
             u.data_ptr(), x.data_ptr(), Rv.data_ptr(), scal.data_ptr(),
             vecs.data_ptr(), s_init.data_ptr(), Ps_init.data_ptr(),
             s_final.data_ptr(), S_MINUS.data_ptr(), S_PLUS.data_ptr(),
             S_SMOOTH.data_ptr(), None if hist is None else hist.data_ptr(),
             T, B, float(gamma_discount), int(obs_type == "TOTALCASES"),
             float(beta), float(1.0 - beta), int(inv_monitor_len), stream)
-    _build.check(lib, "ekf3", "ekf3_smoother", code)
+    _build.check(lib, "ekf3", entry, code)
     launches += 1
+    count("ekf3.launches")
     return S_SMOOTH, S_PLUS, S_MINUS
 
 
@@ -260,9 +286,10 @@ def ekf3_lanes(u_bl, x_bl, Rv_bl, params_bl, Q_bl, s_init_bl, Ps_init_bl,
                obs_type="NEWCASES", mesh=None):
     """Param-packing glue around ``ekf3`` for the pipeline (the counterpart
     of ekf3_pallas_lanes, epidemicmodeling_tpu/ops/pallas/ekf3_kernel.py:475;
-    no lane padding without a mesh: the kernel masks its ragged edge). On a
-    CUDA device the kernel runs in float32 and its outputs are cast back to
-    the caller's dtype; on the CPU the plain version runs in that dtype.
+    no lane padding without a mesh: the kernel masks its ragged edge). The
+    filter runs in the caller's dtype (x_bl's): on a CUDA device the
+    kernel's instance of it (float32 or float64; any other raises), on the
+    CPU the plain version.
 
     mesh: a parallel.Mesh of more than one slot splits the lanes over its
     slots, region-major ("dp", "ep"), one launch a slot (ops/cuda/shard.py),
@@ -271,11 +298,8 @@ def ekf3_lanes(u_bl, x_bl, Rv_bl, params_bl, Q_bl, s_init_bl, Ps_init_bl,
 
     All arrays batch-last. Returns (S_SMOOTH, S_PLUS, S_MINUS), each
     (T, 3, B)."""
-    fdt = x_bl.dtype
-    kdt = torch.float32 if x_bl.is_cuda else fdt
     args = pack_ekf3_args(u_bl, x_bl, Rv_bl, params_bl, Q_bl, s_init_bl,
-                          Ps_init_bl, s_final_bl, Ps_final_bl, kdt)
+                          Ps_init_bl, s_final_bl, Ps_final_bl, x_bl.dtype)
     run = functools.partial(ekf3, gamma_discount=gamma_discount,
                             obs_type=obs_type)
-    outs = map_lanes(run, mesh, args, ("dp", "ep"), n_out=3)
-    return tuple(o.to(fdt) for o in outs)
+    return tuple(map_lanes(run, mesh, args, ("dp", "ep"), n_out=3))

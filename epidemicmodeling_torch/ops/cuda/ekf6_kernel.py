@@ -20,10 +20,14 @@ threads on 132 SMs. No lane padding or time segments (the TPU kernel's
 segments and VMEM stash exist only for the TPU's memory); forward and
 backward are two launches on PyTorch's current stream.
 
-``ekf6`` launches the kernel for CUDA tensors (float32, contiguous) and
+``ekf6`` launches the kernel for CUDA tensors (contiguous, all float32 or
+all float64: the dtype picks the kernels' float or double instance,
+``ekf3_kernel.card_entry``; the MATLAB reference computes in double) and
 raises on anything it cannot take. For CPU tensors it runs ``ekf6_plain``,
 the same computation on the port's batch-last core, in the inputs' dtype.
-``launches`` counts the kernel launches (one per forward+backward pair).
+``launches`` counts the kernel launches (one per forward+backward pair);
+the recording in force (utils/profiling.py) counts them as
+``ekf6.launches`` and their lanes as ``ekf6.lanes``.
 """
 
 from __future__ import annotations
@@ -33,9 +37,10 @@ import ctypes
 import torch
 
 from ..ekf_bl import ekf_smoother_bl
+from ...utils.profiling import count
 from ...models.batch_last import si_alpha_costate_ekf_system_bl
 from . import build as _build
-from .ekf3_kernel import check_options, check_kernel_args
+from .ekf3_kernel import card_entry, check_kernel_args, check_options
 
 M = 6
 NPI = 12
@@ -46,10 +51,13 @@ BLOCK = M * LANES
 
 launches = 0
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_F, _D = ctypes.c_float, ctypes.c_double
 _SIGNATURES = {
     "ekf6_forward": [_P] * 11 + [_I, _I, _F, _I, _F, _F, _I, _P],
+    "ekf6_forward_f64": [_P] * 11 + [_I, _I, _D, _I, _D, _D, _I, _P],
     "ekf6_backward": [_P] * 11 + [_I, _I, _P],
+    "ekf6_backward_f64": [_P] * 11 + [_I, _I, _P],
 }
 
 
@@ -102,7 +110,9 @@ def ekf6(u, x, Rv, scal, vecs, s_init, Ps_init, s_final, Ps_final,
         vecs=(4, NPI, B), s_init=(M, B), Ps_init=(M * M, B),
         s_final=(M, B), Ps_final=(M * M, B)))
     lib = _build.load("ekf6", _SIGNATURES)
-    out = dict(dtype=torch.float32, device=dev)
+    fwd = card_entry("ekf6_forward", u.dtype)
+    bwd = card_entry("ekf6_backward", u.dtype)
+    out = dict(dtype=u.dtype, device=dev)
     S_MINUS = torch.empty((T, M, B), **out)
     S_PLUS = torch.empty((T, M, B), **out)
     # the lower triangles of the symmetric covariances, row by row
@@ -113,21 +123,23 @@ def ekf6(u, x, Rv, scal, vecs, s_init, Ps_init, s_final, Ps_final,
     global launches
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.ekf6_forward(
+        code = getattr(lib, fwd)(
             u.data_ptr(), x.data_ptr(), Rv.data_ptr(), scal.data_ptr(),
             vecs.data_ptr(), s_init.data_ptr(), Ps_init.data_ptr(),
             S_MINUS.data_ptr(), S_PLUS.data_ptr(), P_MINUS.data_ptr(),
             P_PLUS.data_ptr(), T, B, float(gamma_discount),
             int(obs_type == "TOTALCASES"), float(beta), float(1.0 - beta),
             int(inv_monitor_len), stream)
-        _build.check(lib, "ekf6", "ekf6_forward", code)
-        code = lib.ekf6_backward(
+        _build.check(lib, "ekf6", fwd, code)
+        code = getattr(lib, bwd)(
             u.data_ptr(), S_PLUS.data_ptr(), S_MINUS.data_ptr(),
             P_PLUS.data_ptr(), P_MINUS.data_ptr(), scal.data_ptr(),
             vecs.data_ptr(), s_final.data_ptr(), Ps_final.data_ptr(),
             S_SMOOTH.data_ptr(), U_SM.data_ptr(), T, B, stream)
-        _build.check(lib, "ekf6", "ekf6_backward", code)
+        _build.check(lib, "ekf6", bwd, code)
     launches += 1
+    count("ekf6.launches")
+    count("ekf6.lanes", B)
     return S_SMOOTH, U_SM, S_PLUS
 
 

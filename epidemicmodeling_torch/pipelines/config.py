@@ -98,8 +98,10 @@ class PipelineConfig:
                                             # ops) | "lanes" | "pallas"
                                             # (both the batch-last path: the
                                             # CUDA kernels of ops/cuda/ on a
-                                            # card; NEWCASES or TOTALCASES
-                                            # observations, order=1 only)
+                                            # card, in the run's dtype,
+                                            # float32 or float64; NEWCASES
+                                            # or TOTALCASES observations,
+                                            # order=1 only)
     scan_unroll: int = 1                    # JAX lax.scan unroll; kept for
                                             # field parity, unused here
 

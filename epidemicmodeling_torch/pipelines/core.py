@@ -25,7 +25,6 @@ replicated on the lead slot (parallel.mesh.shard_region_batch).
 
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -44,7 +43,7 @@ from ..regression import (lasso_cv, nnls_with_intercept,
                           robust_affine_fit_elementwise)
 from ..utils.device import resolve_device
 from ..utils.math import clip_lo_hi
-from ..utils.profiling import span
+from ..utils.profiling import count_on_close, span
 from .config import PipelineConfig
 
 
@@ -539,6 +538,11 @@ def _sweep_chunk_body(eps_chunk, prep, s_hist, *, cfg, T_hist, Ec,
     draw an epsilon as the JAX package's keys give them, or None for the
     deterministic rollout. mesh: the EKS lanes split over its slots,
     epsilon-major ("ep", "dp"), the rest on the lead slot.
+    Spans (utils.profiling): ``pareto.ekf6`` (the EKS), ``pareto.rollout``
+    and ``pareto.score``; on "lanes"/"pallas" the recording's counter
+    ``ekf6.costate_nonfinite`` gets the smoothed costates that are not
+    finite, over every lane the EKS runs (reduced on the device, read when
+    the recording closes).
     Returns (J0, J1 (Ec, R), s, i, alpha (Ec, R, T) or None,
     u_prescribed (Ec, R, H, P))."""
     obs = prep["obs"]
@@ -549,28 +553,34 @@ def _sweep_chunk_body(eps_chunk, prep, s_hist, *, cfg, T_hist, Ec,
     lanes = sweep_lane_inputs(prep, eps_chunk)
     rp = lanes["params"]
 
-    if cfg.backend == "vmap":
-        keys = ["u", "x", "Rv", "s_init", "Ps_init", "s_final", "Ps_final",
-                "Q"]
-        names = list(rp)
+    with span("pareto.ekf6"):
+        if cfg.backend == "vmap":
+            keys = ["u", "x", "Rv", "s_init", "Ps_init", "s_final",
+                    "Ps_final", "Q"]
+            names = list(rp)
 
-        def run(*a):
-            part = dict(zip(keys, a), params=dict(zip(names, a[len(keys):])))
-            return (sweep_eks_vmap(cfg, part).u_opt_smooth.permute(1, 2, 0),)
+            def run(*a):
+                part = dict(zip(keys, a),
+                            params=dict(zip(names, a[len(keys):])))
+                return (sweep_eks_vmap(cfg, part).u_opt_smooth.permute(
+                    1, 2, 0),)
 
-        u_sm, = map_lanes(run, mesh, [lanes[k] for k in keys]
-                          + [rp[k] for k in names], ("ep", "dp"), 1)
-    else:
-        # the kernel runs float32 on a card; its plain version runs the
-        # caller's dtype on the CPU
-        kdt = torch.float32 if obs.is_cuda else fdtype
-        ekf6 = functools.partial(ekf6_kernel.ekf6,
-                                 gamma_discount=cfg.gamma_ekf,
-                                 obs_type=cfg.observation_type)
-        u_sm, = map_lanes(lambda *a: ekf6(*a)[1:2], mesh,
-                          ekf6_kernel.pack_ekf6_args(lanes, kdt),
-                          ("ep", "dp"), 1)
-        u_sm = u_sm.to(fdtype)                            # (T, P, Bl)
+            u_sm, = map_lanes(run, mesh, [lanes[k] for k in keys]
+                              + [rp[k] for k in names], ("ep", "dp"), 1)
+        else:
+            # the kernel (its plain version on the CPU) in the caller's
+            # dtype: float32 or float64 on a card, any other raises
+            def run(*a):
+                s_sm, u_sm, _ = ekf6_kernel.ekf6(
+                    *a, gamma_discount=cfg.gamma_ekf,
+                    obs_type=cfg.observation_type)
+                count_on_close(("ekf6.costate_nonfinite",), lambda: (
+                    ~torch.isfinite(s_sm[:, 3:])).sum().reshape(1, 1))
+                return (u_sm,)
+
+            u_sm, = map_lanes(run, mesh,
+                              ekf6_kernel.pack_ekf6_args(lanes, fdtype),
+                              ("ep", "dp"), 1)             # (T, P, Bl)
 
     u_presc_bl = u_sm[T_hist:]                            # (H, P, Bl)
     s_hist_bl = _tile_lanes(s_hist, Ec)                   # (T_hist, 3, Bl)
@@ -585,25 +595,30 @@ def _sweep_chunk_body(eps_chunk, prep, s_hist, *, cfg, T_hist, Ec,
     sv = s_hist_bl[-1]
     dt = rp["dt"]
     traj = []
-    for t in range(H):
-        s_, i_, al_ = sv[0], sv[1], sv[2]
-        flow, rise = al_ * s_ * i_, al_ * s_ * i_ - rp["beta"] * i_
-        drive = (-rp["gamma"] * al_ + rp["gamma"] * rp["b"]
-                 + rp["gamma"] * _dot_p(rp["a"], rp["u_max"] - u_presc_bl[t]))
-        if noise is not None:
-            n_t = noise[t] * noise_std
-            flow, rise, drive = flow + n_t[0], rise + n_t[1], drive + n_t[2]
-        s1 = clip_lo_hi(s_ - dt * flow, 0.0, 1.0)
-        i1 = clip_lo_hi(i_ + dt * rise, 0.0, 1.0)
-        a1 = clip_lo_hi(al_ + dt * drive, rp["alpha_min"], rp["alpha_max"])
-        sv = torch.stack([s1, i1, a1])
-        traj.append(sv)
-    full_states = (torch.cat([s_hist_bl, torch.stack(traj)], dim=0)
-                   if traj else s_hist_bl)                # (T, 3, Bl)
-    cases = full_states[:, 0] * full_states[:, 1] * full_states[:, 2]
-    J0 = torch.mean(cases, dim=0).reshape(Ec, R)
-    J1 = torch.mean(lanes["w"][None] * u_sm,
-                    dim=(0, 1)).reshape(Ec, R)
+    with span("pareto.rollout"):
+        for t in range(H):
+            s_, i_, al_ = sv[0], sv[1], sv[2]
+            flow, rise = al_ * s_ * i_, al_ * s_ * i_ - rp["beta"] * i_
+            drive = (-rp["gamma"] * al_ + rp["gamma"] * rp["b"]
+                     + rp["gamma"] * _dot_p(rp["a"],
+                                            rp["u_max"] - u_presc_bl[t]))
+            if noise is not None:
+                n_t = noise[t] * noise_std
+                flow, rise, drive = (flow + n_t[0], rise + n_t[1],
+                                     drive + n_t[2])
+            s1 = clip_lo_hi(s_ - dt * flow, 0.0, 1.0)
+            i1 = clip_lo_hi(i_ + dt * rise, 0.0, 1.0)
+            a1 = clip_lo_hi(al_ + dt * drive, rp["alpha_min"],
+                            rp["alpha_max"])
+            sv = torch.stack([s1, i1, a1])
+            traj.append(sv)
+        full_states = (torch.cat([s_hist_bl, torch.stack(traj)], dim=0)
+                       if traj else s_hist_bl)            # (T, 3, Bl)
+    with span("pareto.score"):
+        cases = full_states[:, 0] * full_states[:, 1] * full_states[:, 2]
+        J0 = torch.mean(cases, dim=0).reshape(Ec, R)
+        J1 = torch.mean(lanes["w"][None] * u_sm,
+                        dim=(0, 1)).reshape(Ec, R)
     u_out = u_presc_bl.reshape(H, P, Ec, R).permute(2, 3, 0, 1)
     if not cfg.pareto_store_trajectories:
         return J0, J1, None, None, None, u_out
@@ -623,7 +638,8 @@ def pareto_prescribe(batch_full, trained: TrainedRegionParams,
     epsilon, the 6-state optimal-control EKS with NaN future inputs and
     costate terminal conditions, the re-simulated prescribed schedule, and
     its (J0, J1). Epsilon is processed in chunks of ``cfg.pareto_chunk``
-    (the last chunk padded with the last epsilon). With
+    (the last chunk padded with the last epsilon), each chunk a ``pareto.chunk`` span
+    (utils.profiling; _sweep_chunk_body has the spans inside it). With
     cfg.stochastic_forecast each epsilon's rollout takes its own (R, H, 3)
     draw: ``noise`` (E, R, H, 3), else drawn chunk by chunk from
     ``generator``. mesh: see the module docstring (cfg.pareto_chunk must
@@ -658,18 +674,20 @@ def pareto_prescribe(batch_full, trained: TrainedRegionParams,
     # epsilons (no per-chunk list and final concatenate)
     bufs = None
     for c0 in range(0, E_pad, chunk):
-        out = _sweep_chunk_body(
-            eps_padded[c0:c0 + chunk], prep, s_hist, cfg=cfg, T_hist=T_hist,
-            Ec=chunk, mesh=mesh,
-            noise=(noise[c0:c0 + chunk] if noise is not None else
-                   forecast_noise(cfg, (chunk, R, H, 3), fd, dev,
-                                  generator)))
-        if bufs is None:
-            bufs = [None if o is None else o.new_empty((E_pad,) + o.shape[1:])
-                    for o in out]
-        for buf, o in zip(bufs, out):
-            if buf is not None:
-                buf[c0:c0 + chunk] = o
+        with span("pareto.chunk"):
+            out = _sweep_chunk_body(
+                eps_padded[c0:c0 + chunk], prep, s_hist, cfg=cfg,
+                T_hist=T_hist, Ec=chunk, mesh=mesh,
+                noise=(noise[c0:c0 + chunk] if noise is not None else
+                       forecast_noise(cfg, (chunk, R, H, 3), fd, dev,
+                                      generator)))
+            if bufs is None:
+                bufs = [None if o is None
+                        else o.new_empty((E_pad,) + o.shape[1:])
+                        for o in out]
+            for buf, o in zip(bufs, out):
+                if buf is not None:
+                    buf[c0:c0 + chunk] = o
     get = lambda idx: None if bufs[idx] is None else bufs[idx][:E]
     return {"J0": get(0), "J1": get(1), "s": get(2), "i": get(3),
             "alpha": get(4), "u_prescribed": get(5),

@@ -27,6 +27,7 @@ from ..data.preprocess import (OXFORD_NPI_COLUMNS, build_region_batch,
 from ..utils.dates import num_days_between
 from ..parallel.mesh import mesh_device, validate_pareto_chunk
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 from .config import PipelineConfig
 from .core import (TrainOutputs, TrainedRegionParams, check_config,
                    device_batch, forecast_scenarios, monte_carlo_baseline,
@@ -271,8 +272,14 @@ def run_pipeline(batch_train, batch_full, actual_npis, T_hist, npi_weights,
     (a RuntimeError on a machine without one; pass device="cpu" for the
     CPU). dtype None: the batch's, else torch's default dtype. On the
     "lanes"/"pallas" backends the EKS stages run the hand-written kernels
-    on a CUDA device and their plain versions on the CPU; on "vmap" they
-    run the generic EKF/EKS core (tensor ops) on either.
+    on a CUDA device, in that dtype (float32 or float64: each kernel has an
+    instance of each; any other raises), and their plain versions on the
+    CPU; on "vmap" they run the generic EKF/EKS core (tensor ops) on
+    either.
+    Spans (utils.profiling): ``pipeline`` > ``pipeline.train`` (with
+    train_regions' spans), ``pipeline.forecast``, ``pareto`` (with
+    pareto_prescribe's), ``mc``, ``front``; each stage's span ends after
+    the wait for the card that ``stage_seconds`` already makes.
     trained: optional pre-trained TrainedRegionParams (prescribe from a
     checkpoint without retraining, testScripts/testPrescribeXPRIZE01.m);
     rows are re-aligned to the batch's regions by name.
@@ -316,33 +323,41 @@ def run_pipeline(batch_train, batch_full, actual_npis, T_hist, npi_weights,
         stage[name] = t1 - t0
         t0 = t1
 
-    if trained is None:
-        train_out = train_regions(batch_train, npi_mins, npi_maxes,
-                                  num_regression_days, cfg, mesh=mesh)
-    else:
-        train_out = TrainOutputs(
-            _realign(trained, batch_train.names, dtype, device),
-            region_init(batch_train, cfg, dtype, device),
-            None, None, None, None)
-    lap("train")
-    scen, s_hist = forecast_scenarios(
-        batch_full, train_out.trained, train_out.init, npi_weights,
-        npi_mins, npi_maxes, T_hist, cfg, actual_npis=actual_npis,
-        generator=generator, mesh=mesh)
-    lap("scenarios")
-    par = pareto_prescribe(
-        batch_full, train_out.trained, train_out.init, s_hist,
-        epsilon_values, npi_weights, npi_mins, npi_maxes, T_hist, cfg,
-        generator=generator, mesh=mesh)
-    lap("pareto")
-    mc = monte_carlo_baseline(
-        batch_full, train_out.trained, train_out.init, s_hist, npi_weights,
-        npi_mins, npi_maxes, T_hist, cfg, generator=generator,
-        u_random=u_random)
-    lap("monte_carlo")
-    # per-region Pareto-front membership (TrainPredictPrescribeNPI.m:624-628)
-    front = pareto_front_mask_batched(par["J0"], par["J1"])
-    lap("front")
+    with span("pipeline"):
+        with span("pipeline.train"):
+            if trained is None:
+                train_out = train_regions(batch_train, npi_mins, npi_maxes,
+                                          num_regression_days, cfg,
+                                          mesh=mesh)
+            else:
+                train_out = TrainOutputs(
+                    _realign(trained, batch_train.names, dtype, device),
+                    region_init(batch_train, cfg, dtype, device),
+                    None, None, None, None)
+            lap("train")
+        with span("pipeline.forecast"):
+            scen, s_hist = forecast_scenarios(
+                batch_full, train_out.trained, train_out.init, npi_weights,
+                npi_mins, npi_maxes, T_hist, cfg, actual_npis=actual_npis,
+                generator=generator, mesh=mesh)
+            lap("scenarios")
+        with span("pareto"):
+            par = pareto_prescribe(
+                batch_full, train_out.trained, train_out.init, s_hist,
+                epsilon_values, npi_weights, npi_mins, npi_maxes, T_hist,
+                cfg, generator=generator, mesh=mesh)
+            lap("pareto")
+        with span("mc"):
+            mc = monte_carlo_baseline(
+                batch_full, train_out.trained, train_out.init, s_hist,
+                npi_weights, npi_mins, npi_maxes, T_hist, cfg,
+                generator=generator, u_random=u_random)
+            lap("monte_carlo")
+        # per-region Pareto-front membership
+        # (TrainPredictPrescribeNPI.m:624-628)
+        with span("front"):
+            front = pareto_front_mask_batched(par["J0"], par["J1"])
+            lap("front")
     return TrainPredictPrescribeResult(
         trained=train_out.trained, scenarios=scen, pareto=par,
         monte_carlo=mc, pareto_front=front, s_hist=s_hist,

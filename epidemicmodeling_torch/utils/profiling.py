@@ -34,12 +34,19 @@ the recording that the program's own spans and counters write to.
 The backtest's spans (``backtest`` > ``backtest.train`` > ``train.init``,
 ``train.ekf3``, ``train.regress``; ``backtest.lanes``, ``backtest.ekf3``,
 ``backtest.errors``) and counters are read by the benchmark's per-layer
-metrics (benchmark/metrics/_spans.py and the readers that use it). The
-counters: ``host_sync``; the NNLS's (regression/nnls.py), on the CPU the
-plain version's batched loop trips ``nnls.outer``, ``nnls.inner`` and
-``nnls.intercept``, on the card the kernel's ``nnls.launches`` and its
-per-problem iterations summed over the problems, ``nnls.lane_outer``,
-``nnls.lane_inner`` and ``nnls.lane_intercept``; ``lasso.sweeps``.
+metrics (benchmark/metrics/_spans.py and the readers that use it), and so
+are run_pipeline's: ``pipeline`` > ``pipeline.train`` (the ``train.*``
+spans inside), ``pipeline.forecast``, ``pareto`` > ``pareto.chunk`` (one
+an epsilon chunk) > ``pareto.ekf6``, ``pareto.rollout``, ``pareto.score``;
+``pipeline`` > ``mc``, ``front``. The counters: ``host_sync``; the NNLS's
+(regression/nnls.py), on the CPU the plain version's batched loop trips
+``nnls.outer``, ``nnls.inner`` and ``nnls.intercept``, on the card the
+kernel's ``nnls.launches`` and its per-problem iterations summed over the
+problems, ``nnls.lane_outer``, ``nnls.lane_inner`` and
+``nnls.lane_intercept``; ``lasso.sweeps``; the EKS kernels' launches on the
+card, ``ekf3.launches``, ``ekf6.launches`` and ``ekf6.lanes``; and the
+sweep's ``ekf6.costate_nonfinite`` (pipelines/core.py), the smoothed
+costates that are not finite, summed at the recording's close.
 """
 
 from __future__ import annotations
@@ -146,13 +153,17 @@ def count(name: str, n: int = 1) -> None:
         rec.counters[name] = rec.counters.get(name, 0) + n
 
 
-def count_on_close(names, counts: torch.Tensor) -> None:
+def count_on_close(names, counts) -> None:
     """Add the column sums of ``counts`` (an integer tensor (..., len(names))
     on any device) to the counters ``names`` of the recording in force when
-    it closes; the tensor is read then, not now."""
+    it closes; the tensor is read then, not now. ``counts`` may be a
+    function that makes the tensor: it is called now, and only when a
+    recording is in force (a count that costs device work to form costs
+    nothing with the recording off)."""
     rec = _REC
     if rec is not None:
-        rec._on_close.append((tuple(names), counts))
+        rec._on_close.append((tuple(names),
+                              counts() if callable(counts) else counts))
 
 
 def host_sync(fn, x):

@@ -104,21 +104,6 @@ __device__ __forceinline__ void jacobian(const float (&s)[M], float dt,
   A[2][2] = 1.f - dt * gam;
 }
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
 // The launch's shape: lanes a block, whether the records stay in shared
 // memory, and the dynamic shared memory a block takes.
 struct Geometry {
@@ -196,7 +181,7 @@ ekf3_kernel(const float* __restrict__ u, const float* __restrict__ x,
           const float* src = e < NPI ? u + at3(t, e, NPI, b, B)
                              : e == NPI ? x + at3(t, 0, 1, b, B)
                                         : Rv + at3(t, 0, 1, b, B);
-          cp_async4(d + e * LB, src);
+          cp_async(d + e * LB, src);
         }
       }
       cp_async_commit();
@@ -210,7 +195,7 @@ ekf3_kernel(const float* __restrict__ u, const float* __restrict__ x,
       for (int j = 0; j < M; ++j)
         P[i][j] = Ps_init[at3(0, i * M + j, M * M, b, B)];
     }
-    AdaptiveR<ADAPTIVE ? MAXL : 1> ad;
+    AdaptiveR<float, ADAPTIVE ? MAXL : 1> ad;
     if constexpr (ADAPTIVE) ad.init(Rv[b], L_mon);
     prefetch(0);
 
@@ -389,7 +374,7 @@ ekf3_kernel(const float* __restrict__ u, const float* __restrict__ x,
     const int t1 = (c + 1) * CHUNK < nrows ? (c + 1) * CHUNK : nrows;
     for (int t = c * CHUNK; t < t1; ++t)
       for (int e = 0; e < RREC; ++e)
-        cp_async4(dst + ((t - c * CHUNK) * RREC + e) * LB, rec(t, e, l));
+        cp_async(dst + ((t - c * CHUNK) * RREC + e) * LB, rec(t, e, l));
     cp_async_commit();
   };
   if (!SMEM_HIST && nrows > 0) prefetch_rows((nrows - 1) / CHUNK);

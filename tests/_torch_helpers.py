@@ -4,6 +4,9 @@ of chip_smoke.py's kernel phase). Imports no JAX."""
 import numpy as np
 import torch
 
+from epidemicmodeling_torch.data import (build_region_batch,
+                                         preprocess_region,
+                                         synthetic_oxford_frame)
 from epidemicmodeling_torch.ops.cuda.ekf3_kernel import \
     pack_params3_for_kernel
 from epidemicmodeling_torch.ops.cuda.ekf6_kernel import \
@@ -59,13 +62,14 @@ def make_inputs(m, B, T, T_hist, seed, obs_type="NEWCASES", dtype=np.float64):
 
 
 def packed_args(m, d, device):
-    """The kernel's packed argument tuple on ``device`` from make_inputs."""
+    """The kernel's packed argument tuple on ``device`` from make_inputs,
+    in the inputs' dtype."""
     t = {k: ({kk: torch.tensor(vv, device=device) for kk, vv in v.items()}
              if isinstance(v, dict) else torch.tensor(v, device=device))
          for k, v in d.items()}
     B = d["x"].shape[1]
     pack = pack_params3_for_kernel if m == 3 else pack_params_for_kernel
-    scal, vecs = pack(t["params"], t["Q"])
+    scal, vecs = pack(t["params"], t["Q"], t["x"].dtype)
     return (t["u"], t["x"], t["Rv"], scal, vecs, t["s_init"],
             t["Ps_init"].reshape(m * m, B), t["s_final"],
             t["Ps_final"].reshape(m * m, B))
@@ -167,3 +171,83 @@ def nnls_problems(seed, R=24, n=40, p=12):
     y[q:] = np.einsum("rnp,rp->rn", X[q:], truth) \
         + 0.1 * rng.standard_normal((R - q, n))
     return torch.from_numpy(X), torch.from_numpy(y)
+
+
+def small_region_inputs(n_regions=3, t_hist=60, horizon=10, seed=3):
+    """(batch_train, batch_full, actual NPIs (R, T, P)) of the port's
+    synthetic regions (synthetic_oxford_frame's truth), the daily cases of
+    each its generating model's."""
+    _, _, truth = synthetic_oxford_frame(n_regions=n_regions,
+                                         n_days=t_hist + horizon, seed=seed)
+    sers = [preprocess_region(np.cumsum(tr["s"] * tr["i"] * tr["alpha"]
+                                        * tr["pop"])[:t_hist], None,
+                              tr["u"][:t_hist], tr["pop"])
+            for tr in truth.values()]
+    names = list(truth)
+    actual = np.stack([tr["u"] for tr in truth.values()])
+    return (build_region_batch(sers, names),
+            build_region_batch(sers, names, horizon=horizon), actual)
+
+
+def _rel(a, b) -> float:
+    """max |a - b| / |b| over every cell, in float64 (|a - b| where b is
+    0)."""
+    a, b = a.double(), b.double().to(a.device)
+    d = torch.abs(a - b)
+    return float((d / torch.where(b == 0, torch.ones_like(b),
+                                  torch.abs(b))).max())
+
+
+def reference_gaps(res, bf, actual, T_hist, eps, u_random, cfg, mins, maxes,
+                   weights) -> dict:
+    """run_pipeline's result ``res`` against the benchmark's plain reference
+    (benchmark/reference/plain.py: plain float64 PyTorch, written apart from
+    the port) on ``res``'s device, each stage from the program's own state
+    as the request made it: the historic states from the program's trained
+    coefficients, the scenarios, the sweep at every epsilon of ``eps``, the
+    Monte Carlo on the same schedules ``u_random`` (N, H, P), and the front
+    from the program's own costs. Relative gaps (``_rel``) but for
+    ``sweep_flips`` (cells prescribed otherwise), ``front_mismatch``
+    (memberships that differ) and ``costate_nonfinite`` (the reference's
+    share of smoothed costates not finite); ``train_own``: the trained
+    coefficients against the reference's own training."""
+    import dataclasses
+
+    from benchmark.reference import plain
+    ar = plain.REFERENCE
+    dev = res.s_hist.device
+    c = plain.settings(dataclasses.asdict(cfg))
+    inp = plain.inputs(dict(obs=bf.observations,
+                            new_cases_norm=bf.new_cases_norm,
+                            obs_noise_var=bf.obs_noise_var, npis=bf.npis,
+                            population=bf.population, actual=actual),
+                       mins, maxes, weights, ar, dev)
+    t = lambda x: torch.as_tensor(x, dtype=torch.float64, device=dev)
+    tr = res.trained
+    a2, b2, s_hist = t(tr.a2), t(tr.b2), t(res.s_hist)
+    own = plain.train(ar, c, plain.head(inp, T_hist), T_hist)
+    out = {"train_own": max(_rel(getattr(tr, k), getattr(own, k))
+                            for k in ("a1", "b1", "a2", "b2")),
+           "s_hist": _rel(s_hist, plain.historic_states(
+               ar, c, inp, a2, b2, T_hist))}
+    ref_sc = plain.scenarios(ar, c, inp, a2, b2, s_hist, T_hist)
+    out["scenarios"] = max(_rel(getattr(res.scenarios[n], f), ref_sc[n][k])
+                           for n in ref_sc
+                           for k, f in enumerate(("J0", "J1")))
+    sw = plain.sweep(ar, c, inp, a2, b2, s_hist, t(eps), T_hist)
+    par = res.pareto
+    out["sweep_flips"] = int((par["u_prescribed"] != sw.u).sum())
+    out["sweep_cost"] = max(_rel(par["J0"], sw.J0), _rel(par["J1"], sw.J1))
+    J0, J1 = plain.score(ar, c, inp, a2, b2, s_hist,
+                         t(par["u_prescribed"]), T_hist)
+    out["sweep_score"] = max(_rel(par["J0"], J0), _rel(par["J1"], J1))
+    out["costate_nonfinite"] = sw.costate_nonfinite
+    out["front_mismatch"] = int((plain.front(t(par["J0"]), t(par["J1"]))
+                                 != res.pareto_front.bool()).sum())
+    J0, J1 = plain.monte_carlo(ar, c, inp, a2, b2, s_hist, t(u_random),
+                               T_hist)
+    out["mc"] = max(_rel(res.monte_carlo["J0"], J0),
+                    _rel(res.monte_carlo["J1"], J1))
+    out["u_max_share_first_eps"] = float(
+        (sw.u[0] == inp.u_max).double().mean())
+    return out

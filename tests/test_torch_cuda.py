@@ -77,19 +77,27 @@ from epidemicmodeling_torch.spatial import (PopulationSimConfig,
                                             population_motion_sim)
 from epidemicmodeling_torch.spatial.agents import default_environment
 from epidemicmodeling_torch.spatial.walkers import walking_sources_sim
+from epidemicmodeling_torch.control import epsilon_grid
+from epidemicmodeling_torch.control.pareto import random_npi_schedules
+from epidemicmodeling_torch.data import NPI_MAXES_DEFAULT
+from epidemicmodeling_torch.pipelines import PipelineConfig
+from epidemicmodeling_torch.pipelines.train_predict_prescribe import \
+    run_pipeline
 from epidemicmodeling_torch.utils.profiling import recording
 
-from chip_smoke import (EKF3_BOUNDS, FILTER_TYPES, LM_COST_RTOL, LM_RTOL,
+from chip_smoke import (EKF3_BOUNDS, F64_BOUND, FILTER_TYPES, LM_COST_RTOL,
+                        LM_RTOL,
                         NNLS_F32_SSE_GAP, PAIRWISE_ROW_BOUND,
                         backtest_regression, nnls_agreement,
                         SMALL_REF_BOUNDS, copy_check_sizes, copy_into,
                         law_rows, lm_costs,
-                        per_capita_case, pinv_ranks_agree, row_err,
+                        T_HIST, per_capita_case, pinv_ranks_agree, row_err,
                         rt_series, shooting_certificates, small_lstm_parity,
                         sweep_errs)
 from tests._torch_helpers import (deploy_inputs, deploy_sweep_args,
                                   make_inputs, masked_err, nnls_problems,
-                                  packed_args, scaled_err)
+                                  packed_args, reference_gaps, scaled_err,
+                                  small_region_inputs)
 
 pytestmark = pytest.mark.cuda
 
@@ -176,8 +184,10 @@ def test_ekf6_kernel_ragged_lanes(cuda, obs_type, beta, B):
 def test_kernels_refuse_what_they_cannot_take(cuda):
     args = packed_args(3, make_inputs(3, B=40, T=20, T_hist=15, seed=1,
                                       dtype=np.float32), cuda)
-    with pytest.raises(ValueError, match="float32"):
-        ekf3(*(a.double() for a in args))
+    with pytest.raises(ValueError, match="float32 or float64"):
+        ekf3(*(a.half() for a in args))
+    with pytest.raises(ValueError, match="one dtype"):
+        ekf3(args[0], args[1].double(), *args[2:])
     with pytest.raises(ValueError, match="contiguous"):
         ekf3(args[0].transpose(0, 2).contiguous().transpose(0, 2), *args[1:])
     with pytest.raises(ValueError, match="shape"):
@@ -188,6 +198,154 @@ def test_kernels_refuse_what_they_cannot_take(cuda):
                                        dtype=np.float32), cuda)
     with pytest.raises(ValueError, match="inv_monitor_len"):
         ekf6(*args6, beta=0.9, inv_monitor_len=0)
+    with pytest.raises(ValueError, match="float32 or float64"):
+        ekf6(*(a.bfloat16() for a in args6))
+
+
+# The double instances against the plain versions in float64, at
+# chip_smoke's F64_BOUND: the two differ in the order of the operations
+# (the kernels' team products, ekf3's 1 / S formed once, its Joseph update
+# times 1 / gd) and in nvcc's fused multiply-adds, which the plain
+# version's separate operations round twice; each a few float64 ulps a step
+# on well-conditioned inputs (these read <= 9e-12; on the CPU, where the
+# sources run without fused multiply-adds, tests/test_torch_ekf_emulated.py
+# reads <= 1.9e-14), so 1e-10, and every prescription equal.
+
+
+@pytest.mark.parametrize("beta", [1.0, 0.9])
+@pytest.mark.parametrize("obs_type", ["NEWCASES", "TOTALCASES"])
+@pytest.mark.parametrize("B,T", [(1, 440), (235, 532), (300, 120),
+                                 (1000, 532)])
+def test_ekf3_double_instance_matches_plain(cuda, B, T, obs_type, beta):
+    """ekf3's double instance, one launch a call, at a single lane, the
+    pipeline's width (records in shared memory, 2 lanes a block at T = 532)
+    and B = 1,000 at T = 532 (records in the device-memory scratch)."""
+    args = packed_args(3, make_inputs(3, B=B, T=T, T_hist=T - T // 5,
+                                      seed=B + T, obs_type=obs_type), cuda)
+    assert args[0].dtype == torch.float64
+    g = ekf3_kernel.ekf3_geometry(T, B, 8)
+    assert g.smem_hist == (B < 1000)
+    kw = dict(gamma_discount=0.995, obs_type=obs_type, beta=beta,
+              inv_monitor_len=21)
+    before = ekf3_kernel.launches
+    got = ekf3(*args, **kw)
+    torch.cuda.synchronize()
+    assert ekf3_kernel.launches == before + 1
+    ref = ekf3_plain(*args, **kw)
+    assert all(o.dtype == torch.float64 for o in got)
+    assert all(bool(torch.isfinite(o).all()) for o in got)
+    for a, b in zip(got, ref):
+        assert scaled_err(a, b) < F64_BOUND
+
+
+def _ekf6_f64_gaps(args, T_hist, kw):
+    """ekf6's double instance against its plain version on the card: the
+    scaled gaps of S_PLUS and S_SMOOTH where both are finite (asserting no
+    cell finite in one only), and every prescription equal."""
+    before = ekf6_kernel.launches
+    ssm, usm, sp = ekf6(*args, **kw)
+    torch.cuda.synchronize()
+    assert ekf6_kernel.launches == before + 1
+    r_ssm, r_usm, r_sp = ekf6_plain(*args, **kw)
+    assert all(o.dtype == torch.float64 for o in (ssm, usm, sp))
+    assert torch.equal(usm[T_hist:-1], r_usm[T_hist:-1])
+    assert bool((usm[-1] == 0).all())
+    gaps = []
+    for got, ref in ((sp, r_sp), (ssm, r_ssm)):
+        err, mismatch = masked_err(got, ref)
+        assert mismatch == 0.0
+        gaps.append(err)
+    return gaps, r_ssm
+
+
+@pytest.mark.parametrize("active", [False, True])
+def test_ekf6_double_instance_matches_plain(cuda, active):
+    """ekf6's double instance (its backward's shared memory dynamic) at the
+    sweep chunk's shape, T = 532 x 5,875 lanes, on chip_smoke's per-capita
+    inputs in float64 (well conditioned: states and costates finite; with
+    control active a third of the cells switch to u_max): within F64_BOUND,
+    every prescription equal."""
+    d = per_capita_case(active)
+    d = {k: ({kk: np.asarray(vv, np.float64) for kk, vv in v.items()}
+             if isinstance(v, dict) else np.asarray(v, np.float64))
+         for k, v in d.items()}
+    gaps, _ = _ekf6_f64_gaps(packed_args(6, d, cuda), T_HIST,
+                             dict(gamma_discount=0.995))
+    assert max(gaps) < F64_BOUND
+
+
+@pytest.mark.parametrize("B", [1, 45, 300])
+@pytest.mark.parametrize("beta", [1.0, 0.9])
+@pytest.mark.parametrize("obs_type", ["NEWCASES", "TOTALCASES"])
+def test_ekf6_double_instance_on_ill_conditioned_lanes(cuda, obs_type, beta,
+                                                       B):
+    """ekf6's double instance on make_inputs' lanes (a NaN future over a
+    quarter of the window; at B = 300 some lanes' smoothed costates reach
+    1e4-6e4, and their smoother's P- are fixed only to cond * eps): the
+    filtered states within F64_BOUND, every prescription equal, and the
+    smoothed states within three times the plain version's own spread
+    between the card and the CPU (the same float64 arithmetic in another
+    order: how far those lanes are fixed at all), or F64_BOUND where that is
+    smaller. On the card the kernel read 0.53-1.34 times that spread where
+    it passed 1e-10 (5.9e-3 at most)."""
+    T_hist = 64
+    args = packed_args(6, make_inputs(6, B=B, T=96, T_hist=T_hist, seed=B,
+                                      obs_type=obs_type), cuda)
+    kw = dict(gamma_discount=0.995, obs_type=obs_type, beta=beta,
+              inv_monitor_len=21)
+    (sp_gap, ssm_gap), r_ssm = _ekf6_f64_gaps(args, T_hist, kw)
+    assert sp_gap < F64_BOUND
+    cpu_ssm = ekf6_plain(*(a.cpu() for a in args), **kw)[0]
+    spread, mismatch = masked_err(r_ssm, cpu_ssm.to(cuda))
+    assert mismatch == 0.0
+    assert ssm_gap <= max(F64_BOUND, 3 * spread)
+
+
+def test_run_pipeline_in_float64_on_the_card_matches_the_reference(cuda):
+    """run_pipeline in float64 at 20 regions over 120 + 20 days, 16
+    epsilons in chunks of 4, 16 Monte-Carlo schedules (every smoothed
+    costate finite, the control switching) on the normal path: the double
+    ekf3 (4 launches) and ekf6 (one a chunk) instances, held stage by stage
+    against the benchmark's plain reference (benchmark/reference/plain.py,
+    float64 on the card) on the same inputs, from the program's own state
+    (reference_gaps): the prescriptions and the front exactly; every cost
+    and historic state within F64_BOUND relative (the kernels' fused
+    multiply-adds). The trained coefficients against the reference's own
+    training are not held here: over 120 days the 12 NPIs take 4 levels
+    (30-day segments), so the regressions are degenerate and the NNLS
+    kernel's active-set path parts from the plain version's on inputs equal
+    to 1e-16 (a1 up to 0.06 apart in 3 of 40 regions on an H100); the
+    xprize-pipeline-f64 cell holds them at 440 days."""
+    T_hist, H, E = 120, 20, 16
+    bt, bf, actual = small_region_inputs(n_regions=20, t_hist=T_hist,
+                                         horizon=H)
+    cfg = PipelineConfig(backend="pallas", pareto_chunk=4,
+                         num_monte_carlo=16)
+    eps = epsilon_grid(E).numpy()
+    u_random = random_npi_schedules(torch.Generator().manual_seed(1), 16,
+                                    np.zeros(12), NPI_MAXES_DEFAULT, H,
+                                    dtype=torch.float64)
+    before = ekf3_kernel.launches, ekf6_kernel.launches
+    with recording() as rec:
+        res = run_pipeline(bt, bf, actual, T_hist, np.ones(12), eps,
+                           np.zeros(12), NPI_MAXES_DEFAULT, T_hist, cfg,
+                           dtype=torch.float64, device=cuda,
+                           u_random=u_random.to(cuda))
+    made = (ekf3_kernel.launches - before[0],
+            ekf6_kernel.launches - before[1])
+    assert made == (4, E // 4)
+    assert rec.counters["ekf3.launches"] == made[0]
+    assert rec.counters["ekf6.launches"] == made[1]
+    assert rec.counters["ekf6.lanes"] == E * 20
+    assert rec.counters["ekf6.costate_nonfinite"] == 0
+    assert res.pareto["J0"].dtype == torch.float64
+    g = reference_gaps(res, bf, actual, T_hist, eps, u_random, cfg,
+                       np.zeros(12), NPI_MAXES_DEFAULT, np.ones(12))
+    assert g["costate_nonfinite"] == 0.0
+    assert g["u_max_share_first_eps"] > 0.05          # the control switches
+    assert g["sweep_flips"] == 0 and g["front_mismatch"] == 0
+    for name in ("sweep_cost", "sweep_score", "scenarios", "mc", "s_hist"):
+        assert g[name] <= F64_BOUND, (name, g[name])
 
 
 AX, AY, AXY = 0.04, 0.0204, 0.0135

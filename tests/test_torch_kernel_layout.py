@@ -153,8 +153,8 @@ EKF6_PIPELINE = ("auto factor_step = [&](int it) { return it - (M - r); };",
                  "for (int it = T - 2 + M; it >= 0; --it) {",
                  "const bool smooth = it <= T - 2;",
                  "if (s >= 0 && s <= T - 2) {",
-                 "float* Ls = L_s[s % RING];",
-                 "const float* Lt = L_s[t % RING];")
+                 "Real* Ls = L_s[s % RING];",
+                 "const Real* Lt = L_s[t % RING];")
 
 
 def _team_layout(B: int):
@@ -231,7 +231,7 @@ def test_ekf6_jacobian_nonzeros_match_the_source():
     text = _source("ekf6.cu")
     body = text[text.index("void jacobian("):]
     body = body[:body.index("\n}\n")]
-    assert "A[i][j] = 0.f;" in body
+    assert "A[i][j] = Real(0);" in body
     entries = set(re.findall(r"A\[(\d)\]\[(\d)\] =", body))
     per_row = [sum(1 for i, _ in entries if int(i) == r) for r in range(6)]
     assert tuple(per_row) == JAC_NNZ
@@ -402,7 +402,7 @@ EKF3_CHAIN = (
     "if (t >= CHUNK) prefetch_rows(t / CHUNK - 1);",
     "if (!SMEM_HIST && nrows > 0) prefetch_rows((nrows - 1) / CHUNK);",
     "row = rec_ring + ((t / CHUNK) % SLOTS * CHUNK + t % CHUNK) * RREC * LB + l;",
-    "size_t fit = SMEM_LIMIT / (4 * (ring + (size_t)T * REC));",
+    "size_t fit = SMEM_LIMIT / (sizeof(Real) * (ring + (size_t)T * REC));",
     "g.smem_hist = fit >= 1 && (B + (int)fit - 1) / (int)fit <= SMS;",
     "g.lanes = g.smem_hist ? (int)fit : MAX_LANES;")
 
@@ -423,14 +423,16 @@ def test_ekf3_constants_match_the_source():
     assert ek.MAX_LANES <= 32 <= ek.THREADS      # the lanes are warp 0
 
 
+@pytest.mark.parametrize("itemsize", [4, 8])
 @pytest.mark.parametrize("T", [1, 7, 8, 9, 440, 532, 3000, 4000])
 @pytest.mark.parametrize("B", [1, 31, 235, 1000, 5875])
-def test_ekf3_layout_covers_every_lane_once(T, B):
-    """ekf3_geometry (the kernel's choice): every lane runs on exactly one
-    thread of warp 0 of one block, each block's (lane, step) gain items are
-    each taken once by its THREADS threads, and the shared memory fits."""
+def test_ekf3_layout_covers_every_lane_once(T, B, itemsize):
+    """ekf3_geometry (the kernel's choice) in both instances (float, double):
+    every lane runs on exactly one thread of warp 0 of one block, each
+    block's (lane, step) gain items are each taken once by its THREADS
+    threads, and the shared memory fits."""
     from epidemicmodeling_torch.ops.cuda import ekf3_kernel as ek
-    g = ek.ekf3_geometry(T, B)
+    g = ek.ekf3_geometry(T, B, itemsize)
     assert 1 <= g.lanes <= ek.MAX_LANES and g.blocks == -(-B // g.lanes)
     lanes = np.concatenate([k * g.lanes + np.arange(min(g.lanes,
                                                         B - k * g.lanes))
@@ -440,7 +442,7 @@ def test_ekf3_layout_covers_every_lane_once(T, B):
     assert g.smem_bytes <= ek.SMEM_LIMIT
     if g.smem_hist:
         assert g.blocks <= ek.SMS and g.hist_floats == 0
-        assert g.smem_bytes == 4 * g.lanes * (
+        assert g.smem_bytes == itemsize * g.lanes * (
             ek.SLOTS * ek.CHUNK * ek.NIN + T * ek.REC)
     else:
         assert g.lanes == ek.MAX_LANES and g.hist_floats == T * ek.REC * B
