@@ -35,7 +35,12 @@ CUDA toolkit (nvcc). In order, it:
    both are timed (the kernels line's f64 entries); then holds the NNLS
    kernel against its plain version on the round-2 regression of the
    xprize-backtest cell's training (235 x 380 x 12, float32), times both
-   and logs the kernel's iteration totals and launches;
+   and logs the kernel's iteration totals and launches; then holds the
+   SI-alpha rollout kernel (one launch a sweep chunk, one for the
+   scenarios, one for the Monte Carlo: SI_ROLLOUT_CALLS a request, checked
+   on the main path, the float64 path, the CLI and the mesh) against its
+   plain version at a sweep chunk's shape, float64 and float32, and
+   times both;
 6. holds the diffusion-stencil kernel against its plain version (both
    schemes, four shapes up to 8191 x 8193) and times kernel, plain version
    and one conv2d as a yardstick; then holds the multi-step kernel (many
@@ -253,7 +258,8 @@ from epidemicmodeling_torch.models import (seirp_rollout,
                                            seirp_saturated_rollout)
 from epidemicmodeling_torch.ops.cuda import (build, ekf3_kernel, ekf6_kernel,
                                              nnls_kernel, pairwise_kernel,
-                                             roofline_kernel, stencil_kernel)
+                                             roofline_kernel, rollout_kernel,
+                                             stencil_kernel)
 from epidemicmodeling_torch.ops.diagnostics import (filter_health,
                                                     summarize_health)
 from epidemicmodeling_torch.ops.ar import ar_design, ar_normal_matrix
@@ -294,7 +300,8 @@ from epidemicmodeling_torch.spatial.walkers import walking_sources_sim
 from epidemicmodeling_torch.utils.dates import date_range_days
 from epidemicmodeling_torch.utils.profiling import recording
 from tests._torch_helpers import (deploy_history, make_inputs, masked_err,
-                                  packed_args, scaled_err)
+                                  npi_levels, packed_args, rollout_params,
+                                  scaled_err)
 
 R_REGIONS, T_HIST, HORIZON = 235, 440, 92
 # slots of the one card in the mesh phase; parallel_kalman's card-vs-CPU
@@ -302,6 +309,9 @@ R_REGIONS, T_HIST, HORIZON = 235, 440, 92
 MESH_SLOTS = 5
 PKF_TOL = 1e-9
 N_EPS, CHUNK, N_MC = 250, 25, 500
+# rollout kernel launches a run_pipeline: one a sweep chunk, one for the
+# three forecast scenarios, one for the Monte Carlo
+SI_ROLLOUT_CALLS = -(-N_EPS // CHUNK) + 2
 MINS = np.zeros(12)
 WEIGHTS = np.ones(12)
 F32 = torch.float32
@@ -316,6 +326,16 @@ EKF3_BOUNDS = {"s_plus": 1e-4, "s_smooth": 1e-3}
 # to 7.6e-4-3.6e-3 above the float64 optimum and zeroing the largest
 # coefficient reads >= 4.9e-2 (NVIDIA H100 80GB HBM3, 700 W).
 NNLS_F32_SSE_GAP = 1e-4
+# rollout kernel vs plain version on the card, per output, |a - b| /
+# (|b| + 1): they differ in the order of the 12-term sum over the NPIs, a
+# rounding a step (tests/test_torch_rollout_emulated.py reads <= 2.2e-16
+# in double, 1.4e-7 in float on the CPU)
+SI_ROLLOUT_BOUNDS = {torch.float64: 1e-12, torch.float32: 1e-5}
+# operations a lane-step as csrc/rollout.cu writes them, noise off: the
+# 12-term drive (36), the three derivatives (8), three Euler steps and
+# their clips (12), the horizon sum (3)
+SI_ROLLOUT_OPS = 59
+SI_ROLLOUT_REPS = 20
 EKF6_FINITE = {"s_plus": 1e-3, "s_smooth": 1e-2, "u_diff": 5e-3,
                "s_plus_nonfinite": 0.0, "s_plus_nonfinite_mismatch": 0.0,
                "s_smooth_nonfinite": 0.0,
@@ -369,11 +389,20 @@ KERNELS = {
              "(epidemicmodeling_tpu/regression/nnls.py:86, :158); it "
              "replaces the port's eager loop, which synced the host at "
              "every loop test"),
+    # not a Pallas kernel: the JAX package's compiled lax.scan rollouts
+    "rollout": dict(
+        run=rollout_kernel.rollout, plain=rollout_kernel.rollout_plain,
+        source="epidemicmodeling_torch/csrc/rollout.cu",
+        note="not a Pallas kernel: it replaces the JAX package's lax.scan "
+             "rollouts of the sweep, the forecast scenarios and the Monte "
+             "Carlo (epidemicmodeling_tpu/pipelines/core.py), which the "
+             "port ran as eager Python loops of small launches"),
 }
 LAUNCH_COUNTERS = {"ekf3": ekf3_kernel, "ekf6": ekf6_kernel,
                    "stencil": stencil_kernel, "pairwise": pairwise_kernel,
                    "roofline": roofline_kernel,
-                   "newcase_ekf": deploy_native, "nnls": nnls_kernel}
+                   "newcase_ekf": deploy_native, "nnls": nnls_kernel,
+                   "rollout": rollout_kernel}
 
 # The card's published peaks (H100 SXM, 700 W):
 # device memory and float32 outside the tensor cores.
@@ -610,12 +639,14 @@ F64_OUTPUTS = {"ekf3": {"s_plus": (1, 0, 3), "s_smooth": (0, 0, 3)},
 # their own sizes and dtype (float32), the XPRIZE driver's Phase-II run at
 # 235 regions on CSVs from 2020-03-15 through 2021-08-29 (its fixed
 # window) under EXAMPLES_DIR.
-EXAMPLE_KERNELS = {"xprize_prescribe": ("ekf3", "ekf6", "nnls"),
-                   "prescribe_from_checkpoint": ("ekf3", "ekf6", "nnls"),
+EXAMPLE_KERNELS = {"xprize_prescribe": ("ekf3", "ekf6", "nnls", "rollout"),
+                   "prescribe_from_checkpoint": ("ekf3", "ekf6", "nnls",
+                                                 "rollout"),
                    "forecast_quality": ("ekf3", "nnls"),
-                   "realistic_data_pipeline": ("ekf3", "ekf6", "nnls"),
+                   "realistic_data_pipeline": ("ekf3", "ekf6", "nnls",
+                                               "rollout"),
                    "spatial_sims": ("stencil", "pairwise"),
-                   "make_figures": ("ekf3", "ekf6", "nnls")}
+                   "make_figures": ("ekf3", "ekf6", "nnls", "rollout")}
 EXAMPLE_ARGS = {"xprize_prescribe": (["xprize_prescribe", "--synthetic"],),
                 "prescribe_from_checkpoint": (["prescribe_from_checkpoint"],)}
 EXAMPLE_CUTS = {"seirp_scenarios": dict(dt=1.0),
@@ -752,8 +783,9 @@ def read_launches() -> dict:
 
 def other_launches(n: dict) -> dict:
     """The launches ``n`` of every kernel but the NNLS, which every
-    training at NONNEGATIVELS makes, whatever runs its filters."""
-    return {k: v for k, v in n.items() if k != "nnls"}
+    training at NONNEGATIVELS makes, and the rollout, which every rollout
+    on the card makes, whatever runs the filters."""
+    return {k: v for k, v in n.items() if k not in ("nnls", "rollout")}
 
 
 def bound(nbytes: float, ops: float, peak: float = PEAK_F32_PER_S):
@@ -911,14 +943,16 @@ def sweep_errs(k_par, p_par, k_mc, p_mc) -> dict:
 
 @contextlib.contextmanager
 def plain_versions():
-    """Route the pipeline's kernel calls to the kernels' plain versions."""
-    saved = ekf3_kernel.ekf3, ekf6_kernel.ekf6
+    """Route the pipeline's kernel calls to the kernels' plain versions
+    (the NNLS's aside: its route follows the device alone)."""
+    saved = ekf3_kernel.ekf3, ekf6_kernel.ekf6, rollout_kernel.rollout
     ekf3_kernel.ekf3 = ekf3_kernel.ekf3_plain
     ekf6_kernel.ekf6 = ekf6_kernel.ekf6_plain
+    rollout_kernel.rollout = rollout_kernel.rollout_plain
     try:
         yield
     finally:
-        ekf3_kernel.ekf3, ekf6_kernel.ekf6 = saved
+        ekf3_kernel.ekf3, ekf6_kernel.ekf6, rollout_kernel.rollout = saved
 
 
 def small_reference_check(device):
@@ -1035,6 +1069,9 @@ def main_path(device, bt, bf, actual):
     check(launches["ekf6"] >= 10, f"ekf6 launched {launches['ekf6']} times")
     check(launches["nnls"] == 2, f"nnls launched {launches['nnls']} times, "
                                  "one a training regression expected")
+    check(launches["rollout"] == SI_ROLLOUT_CALLS,
+          f"rollout launched {launches['rollout']} times, one a sweep "
+          "chunk, the scenarios and the Monte Carlo expected")
     return res, wall, launches
 
 
@@ -1089,7 +1126,8 @@ def f64_path(device, bt, bf, actual):
             f"ekf6.costate_nonfinite={c['ekf6.costate_nonfinite']} "
             f"({share:.4%} of the smoothed costates)")
     check(launches["ekf3"] == 4 and launches["ekf6"] == -(-N_EPS // CHUNK)
-          and launches["nnls"] == 2,
+          and launches["nnls"] == 2
+          and launches["rollout"] == SI_ROLLOUT_CALLS,
           f"float64 main path: launches {launches}")
     check([kn for kn, *_ in rec_launches].count("ekf6") == launches["ekf6"]
           and len(rec_launches) == launches["ekf3"] + launches["ekf6"],
@@ -1129,6 +1167,7 @@ def f64_path(device, bt, bf, actual):
             f"bound_ms={b_ms:.4f} ({b_by}, 8-byte words, "
             f"{PEAK_F64_PER_S / 1e12:.0f} TFLOP/s); largest errors "
             + " ".join(f"{n}={v:.3e}" for n, v in errs.items()))
+    entries["rollout_launches"] = launches["rollout"]
     return entries
 
 
@@ -1388,6 +1427,76 @@ def nnls_counts(device, seed: int = 0):
                                if k.startswith("nnls.lane_")},
                 shape=f"R={R} n={n} p={p} float32 (backtest round-2 "
                       "regression)")
+
+
+def si_rollout_chunk(device, dtype):
+    """(s0, params, u, noise, out) of the rollout kernel at a sweep chunk of
+    the main path: 25 x 235 lanes, H = 92, P = 12, the prescription
+    batch-last (H, P, lanes) as ekf6 leaves it, the trajectory written into
+    the horizon of (E, R, T_HIST + H) buffers, no noise."""
+    R, H, G = R_REGIONS, HORIZON, CHUNK
+    g = torch.Generator().manual_seed(11)
+    s0, p = rollout_params(R, dtype, 0, device)
+    u_bl = npi_levels(g, (H, G * R, 12), dtype, device).permute(0, 2, 1)
+    u = u_bl.contiguous().reshape(H, 12, G, R).permute(2, 3, 0, 1)
+    out = tuple(torch.empty((G, R, T_HIST + H), dtype=dtype,
+                            device=device)[..., T_HIST:] for _ in range(3))
+    return s0, p, u, None, out
+
+
+def si_rollout_counts(device):
+    """The rollout kernel against its plain version on the card at a sweep
+    chunk's shape (si_rollout_chunk), in float64 (the
+    xprize-pipeline-f64 cell's) and float32 (the xprize-phase2 path's):
+    each lane's horizon sum and every trajectory field within
+    SI_ROLLOUT_BOUNDS, one launch a call; the kernel timed back to back
+    (SI_ROLLOUT_REPS calls between CUDA events, so the wrapper's host time
+    overlaps the card's) and one call alone, the plain version once, beside
+    the bound: the prescription read and the trajectory written once, or
+    SI_ROLLOUT_OPS a lane-step at the dtype's peak, the larger. Returns the
+    kernels-line entry (float64) with the float32 readings under
+    ``f32``."""
+    entry = {}
+    for dtype in (torch.float64, F32):
+        args = si_rollout_chunk(device, dtype)
+        s0, p, u, _, out = args
+        G, R, H, P = u.shape
+        reset_launches()
+        got = rollout_kernel.rollout(*args)
+        check(read_launches()["rollout"] == 1,
+              "rollout kernel: one launch a call expected")
+        ref_out = tuple(torch.empty_like(o) for o in out)
+        want = rollout_kernel.rollout_plain(s0, p, u, None, ref_out)
+        errs = {"cases": scaled_err(got, want),
+                **{f: scaled_err(a, b) for f, a, b in
+                   zip(("s", "i", "alpha"), out, ref_out)}}
+        calls = lambda: [rollout_kernel.rollout(*args)
+                         for _ in range(SI_ROLLOUT_REPS)]
+        ms = cuda_ms(calls) / SI_ROLLOUT_REPS
+        call_ms = cuda_ms(lambda: rollout_kernel.rollout(*args))
+        plain_ms = cuda_ms(lambda: rollout_kernel.rollout_plain(*args),
+                           reps=3)
+        w = u.element_size()
+        bound_ms, bound_by = bound(
+            w * (G * R * H * (P + 3) + G * R + R * (3 + 9 + 2 * P)),
+            SI_ROLLOUT_OPS * G * R * H,
+            PEAK_F64_PER_S if dtype == torch.float64 else PEAK_F32_PER_S)
+        name = str(dtype).replace("torch.", "")
+        log(f"kernel rollout [sweep chunk] {G} x {R} lanes, H={H}, P={P}, "
+            f"{name}: kernel {ms:.4f} ms a call back to back ({call_ms:.4f} "
+            f"alone), plain {plain_ms:.3f} ms, bound {bound_ms:.5f} ms "
+            f"({bound_by}); kernel vs plain {errs}")
+        check(all(bool(torch.isfinite(o).all()) for o in (got, *out)),
+              f"rollout kernel {name}: a non-finite output")
+        check(max(errs.values()) <= SI_ROLLOUT_BOUNDS[dtype],
+              f"rollout kernel {name}: {errs} above "
+              f"{SI_ROLLOUT_BOUNDS[dtype]}")
+        entry[name] = dict(
+            max_abs_err=max(errs.values()), ms=ms, call_ms=call_ms,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=None,
+            shape=f"G={G} R={R} H={H} P={P} {name} (sweep chunk)")
+    return dict(entry["float64"], f32=entry["float32"])
 
 
 def stencil_phase(device):
@@ -2042,15 +2151,19 @@ def cli_phase(device):
     check(pred.shape == (R_REGIONS * HORIZON,)
           and bool(np.isfinite(pred).all() and (pred >= 0).all()),
           "cli: predictions not finite and >= 0")
-    check(launches["ekf3"] >= 4 and launches["ekf6"] == N_EPS // CHUNK,
+    check(launches["ekf3"] >= 4 and launches["ekf6"] == N_EPS // CHUNK
+          and launches["rollout"] == SI_ROLLOUT_CALLS,
           f"cli: launches {launches}")
     check(summary["pareto_front_sizes"] and min(
         summary["pareto_front_sizes"]) >= 1, "cli: an empty Pareto front")
     loaded, _, _, _ = run("load_params", "--load-params", ckpt)
     read = lambda f: Path(f).read_bytes()
     check(read(loaded["presc"]) == read(out["presc"]), "cli: --load-params rerun wrote other prescriptions")
-    planned, _, _, _ = run("future_ip", "--future-ip",
-                           str(CLI_DIR / "future_ip.csv"))
+    planned, _, _, ip_n = run("future_ip", "--future-ip",
+                              str(CLI_DIR / "future_ip.csv"))
+    check(ip_n["rollout"] == SI_ROLLOUT_CALLS + 1,
+          f"cli future_ip: launches {ip_n}, one more rollout expected (the "
+          "plan's scenario)")
     pred_ip = parse_floats(read_csv_columns(planned["pred"])[
         "PredictedDailyNewCases"])
     check(bool(np.isfinite(pred_ip).all() and (pred_ip >= 0).all()),
@@ -3543,10 +3656,11 @@ def mesh_xprize_runs(device, bt, bf, actual, card):
         res, wall, n = out[name]
         same_bits(xprize_fields(res), xprize_fields(ref),
                   f"mesh {name} XPRIZE")
-        # the regressions stay on the lead slot
+        # the regressions and the rollouts stay on the lead slot
         check(n["ekf3"] == MESH_SLOTS * ref_n["ekf3"]
               and n["ekf6"] == MESH_SLOTS * ref_n["ekf6"]
-              and n["nnls"] == ref_n["nnls"],
+              and n["nnls"] == ref_n["nnls"]
+              and n["rollout"] == ref_n["rollout"] == SI_ROLLOUT_CALLS,
               f"mesh {name}: launches {n}, one slot {ref_n}")
         stages = " ".join(f"{k}={v:.3f}s" for k, v in
                           res.stage_seconds.items())
@@ -4521,7 +4635,7 @@ def examples_phase(device):
 def kernel_entries(measured, xprize_launches, stencil_cases, sim_launches,
                    pairwise_cases, cli_launches, backtest, slice5_launches,
                    roofline, mesh_launches, deploy, example_launches, nnls,
-                   f64):
+                   f64, si_rollout):
     """One entry per kernel for the JSON line: its launches on its path's
     warm run, its largest error against the plain version, and kernel,
     plain-version, bound and library times at its largest timed shape
@@ -4534,7 +4648,10 @@ def kernel_entries(measured, xprize_launches, stencil_cases, sim_launches,
     CLI, backtest, trainer and mesh runs; f64, f64_path's entries for the
     double instances of ekf3 and ekf6 (their launches on the warm float64
     run_pipeline as f64_launches; their times, bound and largest errors
-    held on that run's launches as f64). Fails if a kernel never launched
+    held on that run's launches as f64; its rollout launches as
+    rollout_launches); si_rollout, si_rollout_counts' measurements, with
+    its launches on the warm main-path, float64 and CLI runs (and the mesh
+    run's, the lead slot's). Fails if a kernel never launched
     on its path."""
     kernels = []
     for name in ("ekf3", "ekf6"):
@@ -4601,6 +4718,11 @@ def kernel_entries(measured, xprize_launches, stencil_cases, sim_launches,
         cli_launches=cli_launches["nnls"],
         backtest_launches=backtest["nnls_launches"],
         train_launches=slice5_launches["train"]["nnls"]))
+    kernels.append(dict(
+        si_rollout, launches=xprize_launches["rollout"],
+        path="run_pipeline (XPRIZE size, warm)",
+        f64_launches=f64["rollout_launches"],
+        cli_launches=cli_launches["rollout"]))
     kernels = [dict(name=name, route="cuda",
                     **{f: v for f, v in KERNELS[name].items()
                        if f not in ("run", "plain")}, **k,
@@ -4613,11 +4735,13 @@ def kernel_entries(measured, xprize_launches, stencil_cases, sim_launches,
                for name, k in zip(KERNELS, kernels)]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} never launched on its path")
-    for name in ("ekf3", "ekf6", "nnls"):
+    for name in ("ekf3", "ekf6", "nnls", "rollout"):
         check(mesh_launches[name] > 0, f"{name} never launched on the mesh")
     for path in ("cli", "backtest", "train"):
-        check(kernels[-1][f"{path}_launches"] > 0,
+        check(kernels[-2][f"{path}_launches"] > 0,
               f"nnls never launched on the {path} path")
+    check(kernels[-1]["cli_launches"] == kernels[-1]["f64_launches"]
+          == SI_ROLLOUT_CALLS, f"rollout launches {kernels[-1]}")
     return kernels
 
 
@@ -4662,6 +4786,7 @@ def main():
     main_res, _, xprize_launches = main_path(device, bt, bf, actual)
     f64 = f64_path(device, bt, bf, actual)
     nnls = nnls_counts(device)
+    si_rollout = si_rollout_counts(device)
 
     # the spatial stack (slice 2)
     stencil_cases = stencil_phase(device) + multistep_phase(device)
@@ -4698,7 +4823,7 @@ def main():
                              sim_launches, pairwise_cases, cli_launches,
                              backtest, slice5_launches, roofline,
                              mesh_launches, deploy, example_launches, nnls,
-                             f64)
+                             f64, si_rollout)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -34,11 +34,15 @@ SOURCES = {
     "roofline": ("roofline.cu",),
     "newcase_ekf": ("newcase_ekf.cu", "newcase_ekf.cuh"),
     "nnls": ("nnls.cu",),
+    "rollout": ("rollout.cu",),
 }
 # flags of one kernel beside NVCC_FLAGS (keyed into its hash): the
-# deployment artefact's card build must equal its CPU build bit for bit, so
-# nvcc may not contract a * b + c into a fused multiply-add there
-EXTRA_FLAGS = {"newcase_ekf": ("--fmad=false",)}
+# deployment artefact's card build must equal its CPU build bit for bit,
+# and the rollout's products and sums must round as its plain version's
+# separate tensor ops do, so nvcc may not contract a * b + c into a fused
+# multiply-add there
+EXTRA_FLAGS = {"newcase_ekf": ("--fmad=false",),
+               "rollout": ("--fmad=false",)}
 
 _lock = threading.Lock()
 _loaded: dict = {}

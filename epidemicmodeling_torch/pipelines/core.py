@@ -13,8 +13,11 @@ kernels (ops/cuda/) for CUDA tensors, their plain versions (the batch-last
 core, ops/ekf_bl.py) for CPU tensors. "vmap" runs the generic EKF/EKS core
 (ops/ekf.py, tensor ops on either device) over the same lanes, with
 cfg.smoother_gain (the MATLAB-exact "pinv" by default) and any
-cfg.beta_ekf; it launches no hand-written kernel. The device is the one the
-batch tensors live on (see device_batch).
+cfg.beta_ekf; it launches no hand-written EKS kernel. The SI-alpha
+rollouts of the scenarios, the sweep and the Monte Carlo follow the device
+alone, on every backend: one launch of the rollout kernel a call on a card
+(ops/cuda/rollout_kernel.py), the plain version's eager loop on the CPU.
+The device is the one the batch tensors live on (see device_batch).
 
 mesh= (parallel.Mesh): the stages run on the mesh's lead slot, and each EKS
 call splits its lanes over the slots (ops/cuda/shard.py): ekf3 region-major,
@@ -31,10 +34,9 @@ import numpy as np
 import torch
 
 from ..control import npi_cost, random_npi_schedules
-from ..models.batch_last import _dot_p
 from ..models.costate import si_alpha_costate_ekf_system
-from ..models.si_alpha import si_alpha_ekf_system, si_alpha_step_fields
-from ..ops.cuda import ekf6_kernel
+from ..models.si_alpha import si_alpha_ekf_system
+from ..ops.cuda import ekf6_kernel, rollout_kernel
 from ..ops.cuda.ekf3_kernel import ekf3_lanes, rho_from_priors
 from ..ops.cuda.shard import map_lanes
 from ..ops.ekf import ekf_smoother
@@ -42,7 +44,6 @@ from ..parallel.mesh import mesh_device, validate_pareto_chunk
 from ..regression import (lasso_cv, nnls_with_intercept,
                           robust_affine_fit_elementwise)
 from ..utils.device import resolve_device
-from ..utils.math import clip_lo_hi
 from ..utils.profiling import count_on_close, span
 from .config import PipelineConfig
 
@@ -360,26 +361,25 @@ def forecast_noise(cfg, shape, dtype, device, generator=None, noise=None):
     return noise
 
 
-def _rollout_from(cfg, init, params, s0, u_future, noise=None):
-    """SI-alpha rollout from the end-of-history state
-    (Tools/SIalpha_Controlled.m semantics, batched over regions).
-    s0: (R, 3); u_future: (R, H, P); noise: (R, H, 3) standard-normal draws
-    scaled by the per-region noise stds (cfg.stochastic_forecast), or None
-    for the deterministic rollout. Returns (R, H, 3), the initial condition
-    excluded."""
-    R, H, _ = u_future.shape
-    p = _rollout_params(cfg, init, params)
-    n = (torch.zeros_like(s0[:, 0]),) * 3
-    s, i, al = s0[:, 0], s0[:, 1], s0[:, 2]
-    out = []
-    for t in range(H):
-        if noise is not None:
-            n = (noise[:, t, 0], noise[:, t, 1], noise[:, t, 2])
-        s, i, al = si_alpha_step_fields(s, i, al, u_future[:, t], *n, p)
-        out.append(torch.stack([s, i, al], dim=-1))
-    if not out:
-        return s0.new_zeros((R, 0, 3))
-    return torch.stack(out, dim=1)
+def _rollout_fields(cfg, init, params, s_hist, u_future, noise=None):
+    """SI-alpha rollouts of G schedules from the end-of-history state
+    (Tools/SIalpha_Controlled.m semantics, batched over schedules and
+    regions; one launch of the rollout kernel on a card, ops/cuda/
+    rollout_kernel.py), each joined to the history. s_hist: (R, T_hist, 3)
+    historic states; u_future: (G, R, H, P); noise: (R, H, 3)
+    standard-normal draws, shared by the G rollouts and scaled by the
+    per-region noise stds (cfg.stochastic_forecast), or None for the
+    deterministic rollout. Returns the fields s, i, alpha as one
+    (3, G, R, T_hist + H) tensor."""
+    G, R, H, _ = u_future.shape
+    T_hist = s_hist.shape[1]
+    fields = s_hist.new_empty((3, G, R, T_hist + H))
+    fields[..., :T_hist] = s_hist.permute(2, 0, 1)[:, None]
+    rollout_kernel.rollout(
+        s_hist[:, -1, :], _rollout_params(cfg, init, params), u_future,
+        None if noise is None else noise.expand(G, R, H, 3),
+        out=tuple(fields[k, ..., T_hist:] for k in range(3)))
+    return fields
 
 
 def forecast_scenarios(batch_full, trained: TrainedRegionParams,
@@ -413,26 +413,24 @@ def forecast_scenarios(batch_full, trained: TrainedRegionParams,
     ip_hist = npis[:, :T_hist, :]
     hold = lambda level: torch.cat(
         [ip_hist[:, :-1, :], level.expand(R, H + 1, P)], dim=1)
-    u_fixed = hold(ip_hist[:, -1:, :])
-    u_zero = hold(t(npi_mins)[None, None, :])
-    u_max_sched = hold(t(npi_maxes)[None, None, :])
+    # the fixed, zero and max schedules, (3, R, T_full, P)
+    u_sc = torch.stack([hold(ip_hist[:, -1:, :]),
+                        hold(t(npi_mins)[None, None, :]),
+                        hold(t(npi_maxes)[None, None, :])])
 
     # A) the fixed-input scenario first: its smoothed states are the shared
     # historic trajectory of every rollout (:380-382,398,408,481)
-    s_hist = _run_ekf3(cfg, u_fixed, obs, params, R_v, init, mesh).s_smooth[
+    s_hist = _run_ekf3(cfg, u_sc[0], obs, params, R_v, init, mesh).s_smooth[
         :, :T_hist, :]
     noise = forecast_noise(cfg, (R, H, 3), fd, dev, generator, noise)
-
-    def scenario(u_full):
-        traj = _rollout_from(cfg, init, params, s_hist[:, -1, :],
-                             u_full[:, T_hist:, :], noise)
-        s, i, al = (torch.cat([s_hist[..., k], traj[..., k]], dim=1)
-                    for k in range(3))
-        J0, J1 = npi_cost(s * i * al, u_full, w)
-        return ScenarioResult(s, i, al, u_full, J0, J1)
-
-    out = {"fixed": scenario(u_fixed), "zero": scenario(u_zero),
-           "max": scenario(u_max_sched)}
+    # the three rollouts share s_hist's last state and the noise: one call
+    f = _rollout_fields(cfg, init, params, s_hist, u_sc[:, :, T_hist:],
+                        noise)
+    out = {}
+    for g, name in enumerate(("fixed", "zero", "max")):
+        s, i, al = f[0, g], f[1, g], f[2, g]
+        J0, J1 = npi_cost(s * i * al, u_sc[g], w)
+        out[name] = ScenarioResult(s, i, al, u_sc[g], J0, J1)
     if actual_npis is not None:
         # Z) the actual NPIs (:367-370): their own EKS trajectory, no rollout
         u_act = to_tensor(actual_npis, fd, dev)
@@ -481,8 +479,7 @@ def pareto_prep(cfg, batch_full, trained, init, npi_weights, npi_mins,
     return dict(u_in=u_in, obs=obs, R_v=batch_full.obs_noise_var,
                 params=params, QQ=QQ, PPs=PPs, ss_init=ss_init,
                 s_final=s_final, Ps_final=Ps_final, w_rp=w_rp,
-                s_noise_std=init.s_noise_std.to(dtype),
-                i_noise_std=init.i_noise_std.to(dtype))
+                rollout=_rollout_params(cfg, init, params))
 
 
 def _tile_lanes(arr, Ec):
@@ -526,25 +523,28 @@ def sweep_eks_vmap(cfg, lanes, outputs="light"):
         order=cfg.order, smoother_gain=cfg.smoother_gain, outputs=outputs)
 
 
-def _sweep_chunk_body(eps_chunk, prep, s_hist, *, cfg, T_hist, Ec,
-                      noise=None, mesh=None):
+def _sweep_chunk_body(eps_chunk, prep, s0, hist_cases, *, cfg, T_hist, Ec,
+                      noise=None, mesh=None, out=None):
     """One epsilon chunk of the Pareto sweep on Ec * R lanes (epsilon-major,
     lane = e * R + r): the 6-state EKS with NaN future inputs (the ekf6
     kernel, or on "vmap" the generic core, sweep_eks_vmap), the rollout of
-    the prescribed schedule from the end-of-history state, and the costs.
+    the prescribed schedule from the end-of-history state s0 (R, 3) (one
+    rollout_kernel call), and the costs. J0 averages s i alpha over the
+    history, the regions' sums hist_cases (R,), and the rolled-out horizon.
     J1 averages w * u over ALL rows of the smoothed schedule: the history,
     the prescription, and the smoother's zero last row (core.py:690).
     noise: (Ec, R, H, 3) standard-normal draws of the rollout, one (R, H, 3)
     draw an epsilon as the JAX package's keys give them, or None for the
     deterministic rollout. mesh: the EKS lanes split over its slots,
-    epsilon-major ("ep", "dp"), the rest on the lead slot.
+    epsilon-major ("ep", "dp"), the rest on the lead slot. out: None, or
+    the (Ec, R, H) s, i, alpha tensors the rollout's trajectory is written
+    into.
     Spans (utils.profiling): ``pareto.ekf6`` (the EKS), ``pareto.rollout``
     and ``pareto.score``; on "lanes"/"pallas" the recording's counter
     ``ekf6.costate_nonfinite`` gets the smoothed costates that are not
     finite, over every lane the EKS runs (reduced on the device, read when
     the recording closes).
-    Returns (J0, J1 (Ec, R), s, i, alpha (Ec, R, T) or None,
-    u_prescribed (Ec, R, H, P))."""
+    Returns (J0, J1 (Ec, R), u_prescribed (Ec, R, H, P))."""
     obs = prep["obs"]
     fdtype = obs.dtype
     R, T_full = obs.shape
@@ -582,50 +582,16 @@ def _sweep_chunk_body(eps_chunk, prep, s_hist, *, cfg, T_hist, Ec,
                               ekf6_kernel.pack_ekf6_args(lanes, fdtype),
                               ("ep", "dp"), 1)             # (T, P, Bl)
 
-    u_presc_bl = u_sm[T_hist:]                            # (H, P, Bl)
-    s_hist_bl = _tile_lanes(s_hist, Ec)                   # (T_hist, 3, Bl)
-    if noise is not None:
-        # (Ec, R, H, 3) -> (H, 3, Bl), lane = e * R + r
-        noise = noise.permute(2, 3, 0, 1).reshape(H, 3, Ec * R)
-        noise_std = torch.stack([
-            _tile_lanes(prep["s_noise_std"], Ec),
-            _tile_lanes(prep["i_noise_std"], Ec),
-            torch.full((Ec * R,), cfg.alpha_noise_std, dtype=fdtype,
-                       device=obs.device)])
-    sv = s_hist_bl[-1]
-    dt = rp["dt"]
-    traj = []
+    # the prescription (H, P, Bl) seen as (Ec, R, H, P), no copy
+    u_out = u_sm[T_hist:].reshape(H, P, Ec, R).permute(2, 3, 0, 1)
     with span("pareto.rollout"):
-        for t in range(H):
-            s_, i_, al_ = sv[0], sv[1], sv[2]
-            flow, rise = al_ * s_ * i_, al_ * s_ * i_ - rp["beta"] * i_
-            drive = (-rp["gamma"] * al_ + rp["gamma"] * rp["b"]
-                     + rp["gamma"] * _dot_p(rp["a"],
-                                            rp["u_max"] - u_presc_bl[t]))
-            if noise is not None:
-                n_t = noise[t] * noise_std
-                flow, rise, drive = (flow + n_t[0], rise + n_t[1],
-                                     drive + n_t[2])
-            s1 = clip_lo_hi(s_ - dt * flow, 0.0, 1.0)
-            i1 = clip_lo_hi(i_ + dt * rise, 0.0, 1.0)
-            a1 = clip_lo_hi(al_ + dt * drive, rp["alpha_min"],
-                            rp["alpha_max"])
-            sv = torch.stack([s1, i1, a1])
-            traj.append(sv)
-        full_states = (torch.cat([s_hist_bl, torch.stack(traj)], dim=0)
-                       if traj else s_hist_bl)            # (T, 3, Bl)
+        fut_cases = rollout_kernel.rollout(s0, prep["rollout"], u_out, noise,
+                                           out)
     with span("pareto.score"):
-        cases = full_states[:, 0] * full_states[:, 1] * full_states[:, 2]
-        J0 = torch.mean(cases, dim=0).reshape(Ec, R)
+        J0 = (hist_cases[None, :] + fut_cases) / T_full
         J1 = torch.mean(lanes["w"][None] * u_sm,
                         dim=(0, 1)).reshape(Ec, R)
-    u_out = u_presc_bl.reshape(H, P, Ec, R).permute(2, 3, 0, 1)
-    if not cfg.pareto_store_trajectories:
-        return J0, J1, None, None, None, u_out
-    unb = lambda a: torch.movedim(a.reshape(a.shape[:-1] + (Ec, R)),
-                                  (-2, -1), (0, 1))
-    return (J0, J1, unb(full_states[:, 0]), unb(full_states[:, 1]),
-            unb(full_states[:, 2]), u_out)
+    return J0, J1, u_out
 
 
 def pareto_prescribe(batch_full, trained: TrainedRegionParams,
@@ -664,34 +630,39 @@ def pareto_prescribe(batch_full, trained: TrainedRegionParams,
     eps_padded = to_tensor(np.concatenate([eps, np.full(E_pad - E, eps[-1])]),
                            fd, dev)
     R, T_full = prep["obs"].shape
+    P = prep["u_in"].shape[-1]
     H = T_full - T_hist
     if noise is not None:
         noise = forecast_noise(cfg, (E, R, H, 3), fd, dev, noise=noise)
         if noise is not None and E_pad > E:
             # the pad epsilons' rollouts are dropped: any draw will do
             noise = torch.cat([noise, noise.new_zeros((E_pad - E, R, H, 3))])
-    # each chunk's outputs go into buffers allocated once for all E_pad
-    # epsilons (no per-chunk list and final concatenate)
-    bufs = None
+    # every chunk writes into buffers allocated once for all E_pad
+    # epsilons; the stored trajectories take the history once and each
+    # chunk's rollout writes its horizon straight into them
+    J0, J1 = (s_hist.new_empty((E_pad, R)) for _ in range(2))
+    u_presc = s_hist.new_empty((E_pad, R, H, P))
+    traj = None
+    if cfg.pareto_store_trajectories:
+        traj = [s_hist.new_empty((E_pad, R, T_full)) for _ in range(3)]
+        for k in range(3):
+            traj[k][..., :T_hist] = s_hist[None, :, :, k]
+    hist_cases = torch.sum(s_hist[..., 0] * s_hist[..., 1] * s_hist[..., 2],
+                           dim=-1)
     for c0 in range(0, E_pad, chunk):
+        c = slice(c0, c0 + chunk)
         with span("pareto.chunk"):
-            out = _sweep_chunk_body(
-                eps_padded[c0:c0 + chunk], prep, s_hist, cfg=cfg,
+            J0[c], J1[c], u_presc[c] = _sweep_chunk_body(
+                eps_padded[c], prep, s_hist[:, -1, :], hist_cases, cfg=cfg,
                 T_hist=T_hist, Ec=chunk, mesh=mesh,
-                noise=(noise[c0:c0 + chunk] if noise is not None else
+                noise=(noise[c] if noise is not None else
                        forecast_noise(cfg, (chunk, R, H, 3), fd, dev,
-                                      generator)))
-            if bufs is None:
-                bufs = [None if o is None
-                        else o.new_empty((E_pad,) + o.shape[1:])
-                        for o in out]
-            for buf, o in zip(bufs, out):
-                if buf is not None:
-                    buf[c0:c0 + chunk] = o
-    get = lambda idx: None if bufs[idx] is None else bufs[idx][:E]
-    return {"J0": get(0), "J1": get(1), "s": get(2), "i": get(3),
-            "alpha": get(4), "u_prescribed": get(5),
-            "epsilon": to_tensor(eps, fd, dev)}
+                                      generator)),
+                out=(None if traj is None
+                     else tuple(f[c, :, T_hist:] for f in traj)))
+    s, i, al = (None,) * 3 if traj is None else (f[:E] for f in traj)
+    return {"J0": J0[:E], "J1": J1[:E], "s": s, "i": i, "alpha": al,
+            "u_prescribed": u_presc[:E], "epsilon": to_tensor(eps, fd, dev)}
 
 
 def monte_carlo_baseline(batch_full, trained: TrainedRegionParams,
@@ -732,15 +703,10 @@ def monte_carlo_baseline(batch_full, trained: TrainedRegionParams,
     w = _region_weights(npi_weights, R, P, fd, dev)
 
     noise = forecast_noise(cfg, (N, R, H, 3), fd, dev, generator, noise)
-    n = (torch.zeros((N, R), dtype=fd, device=dev),) * 3
-    s, i, al = (s_hist[:, -1, k].expand(N, R) for k in range(3))
-    fut_cases = torch.zeros((N, R), dtype=fd, device=dev)
-    for t in range(H):
-        if noise is not None:
-            n = (noise[:, :, t, 0], noise[:, :, t, 1], noise[:, :, t, 2])
-        s, i, al = si_alpha_step_fields(s, i, al, u_random[:, t, None, :],
-                                        *n, p)
-        fut_cases = fut_cases + s * i * al
+    # one rollout call, lane = n * R + r, the schedules read at stride 0
+    # over the regions; only each lane's horizon sum is kept
+    fut_cases = rollout_kernel.rollout(
+        s_hist[:, -1, :], p, u_random[:, None].expand(N, R, H, P), noise)
     hist_cases = torch.sum(s_hist[..., 0] * s_hist[..., 1] * s_hist[..., 2],
                            dim=-1)
     J0 = (hist_cases[None, :] + fut_cases) / T_full
@@ -773,10 +739,8 @@ def scenario_from_schedule(batch_full, trained: TrainedRegionParams,
                           dev)
     noise = forecast_noise(cfg, tuple(u_future.shape[:2]) + (3,), fd, dev,
                            generator, noise)
-    traj = _rollout_from(cfg, init, params, s_hist[:, -1, :], u_future,
-                         noise)
-    s, i, al = (torch.cat([s_hist[..., k], traj[..., k]], dim=1)
-                for k in range(3))
+    f = _rollout_fields(cfg, init, params, s_hist, u_future[None], noise)
+    s, i, al = f[0, 0], f[1, 0], f[2, 0]
     u_full = torch.cat([npis[:, :T_hist, :], u_future], dim=1)
     w = _region_weights(npi_weights, R, P, fd, dev)[:, None, :]
     J0, J1 = npi_cost(s * i * al, u_full, w)

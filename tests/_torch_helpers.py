@@ -251,3 +251,34 @@ def reference_gaps(res, bf, actual, T_hist, eps, u_random, cfg, mins, maxes,
     out["u_max_share_first_eps"] = float(
         (sw.u[0] == inp.u_max).double().mean())
     return out
+
+
+def rollout_params(R, dtype, seed, device="cpu"):
+    """(s0 (R, 3), params) of the rollout kernel (ops/cuda/rollout_kernel)
+    about the XPRIZE path's: dt 1, beta ~0.22, gamma ~0.14, b in
+    [0.75, 0.95], a >= 0 of a few thousandths, the OxCGRT maxima, alpha in
+    [1e-8, 100], noise stds as region_init gives them; a is strided (a
+    column of a wider array) and u_max expanded (stride 0 over the
+    regions), as stage_params gives them."""
+    g = torch.Generator().manual_seed(seed)
+    rnd = lambda *s: torch.rand(s, generator=g, dtype=torch.float64)
+    p = {"dt": torch.ones(R, dtype=torch.float64),
+         "beta": 0.2 + 0.05 * rnd(R), "gamma": 0.1 + 0.05 * rnd(R),
+         "b": 0.75 + 0.2 * rnd(R), "alpha_min": torch.full((R,), 1e-8),
+         "alpha_max": torch.full((R,), 100.0),
+         "s_noise_std": 1e-3 * rnd(R), "i_noise_std": 1e-3 * rnd(R),
+         "alpha_noise_std": torch.full((R,), 1e-2)}
+    p = {k: v.to(dtype=dtype, device=device) for k, v in p.items()}
+    p["a"] = (0.01 * rnd(R, 24)).to(dtype=dtype, device=device)[:, ::2]
+    p["u_max"] = torch.tensor(U_MAX, dtype=dtype, device=device).expand(R, 12)
+    s0 = torch.stack([0.9 + 0.09 * rnd(R), 1e-3 + 1e-2 * rnd(R),
+                      0.2 + 0.3 * rnd(R)], -1).to(dtype=dtype, device=device)
+    return s0, p
+
+
+def npi_levels(g, shape, dtype, device="cpu"):
+    """Integer NPI levels in [0, max] of ``shape`` (..., 12) from the CPU
+    generator ``g``, as the schedules hold."""
+    u = torch.rand(shape, generator=g, dtype=torch.float64) \
+        * torch.tensor(U_MAX + 1)
+    return u.floor().to(dtype=dtype, device=device)

@@ -43,6 +43,14 @@ the plain version's, which certifies any support that differs as
 co-optimal; a collinear passive set gives NaN; its other forms and its
 refusals.
 
+The SI-alpha rollout kernel (csrc/rollout.cu, every schedule and region
+of a rollout in one launch) against its plain version at the
+xprize-pipeline-f64 cell's three call sites, float32 and float64; its
+call under torch's sync debug mode "error"; its 12 launches in a warm
+float64 run_pipeline at 250 epsilons in chunks of 25, with fewer than
+2,500 device events in all; the float32 run_pipeline against its plain
+versions (chip_smoke.small_reference_check).
+
 The generic EKF/EKS core, the MATLAB-exact pinv, the other regressions and
 the Rt estimator have no hand-written kernel: they run as tensor ops on the card
 and are held against the same calls on the CPU in float64, at the
@@ -62,7 +70,8 @@ from epidemicmodeling_torch.deploy import (native as deploy_native,
                                            pareto_sweep_plain)
 from epidemicmodeling_torch.ops.cuda import (build, ekf3_kernel, ekf6_kernel,
                                              nnls_kernel, pairwise_kernel,
-                                             roofline_kernel, stencil_kernel)
+                                             roofline_kernel, rollout_kernel,
+                                             stencil_kernel)
 from epidemicmodeling_torch.ops.cuda.ekf3_kernel import ekf3, ekf3_plain
 from epidemicmodeling_torch.ops.cuda.ekf6_kernel import ekf6, ekf6_plain
 from epidemicmodeling_torch.ops.cuda.pairwise_kernel import (
@@ -89,14 +98,16 @@ from chip_smoke import (EKF3_BOUNDS, F64_BOUND, FILTER_TYPES, LM_COST_RTOL,
                         LM_RTOL,
                         NNLS_F32_SSE_GAP, PAIRWISE_ROW_BOUND,
                         backtest_regression, nnls_agreement,
-                        SMALL_REF_BOUNDS, copy_check_sizes, copy_into,
+                        SI_ROLLOUT_BOUNDS, SMALL_REF_BOUNDS,
+                        copy_check_sizes, copy_into,
                         law_rows, lm_costs,
                         T_HIST, per_capita_case, pinv_ranks_agree, row_err,
                         rt_series, shooting_certificates, small_lstm_parity,
                         sweep_errs)
 from tests._torch_helpers import (deploy_inputs, deploy_sweep_args,
                                   make_inputs, masked_err, nnls_problems,
-                                  packed_args, reference_gaps, scaled_err,
+                                  npi_levels, packed_args, reference_gaps,
+                                  rollout_params, scaled_err,
                                   small_region_inputs)
 
 pytestmark = pytest.mark.cuda
@@ -1472,3 +1483,129 @@ def test_torch_trace_captures_card_kernels(cuda, tmp_path):
     events = json.loads(trace.read_text())["traceEvents"]
     assert any(e.get("cat") == "kernel" for e in events)
     assert y.shape == (256, 256)
+
+
+# ------------------------------------------- the SI-alpha rollout kernel
+
+ROLLOUT_R, ROLLOUT_H, ROLLOUT_T_HIST = 235, 92, 440
+
+
+def _rollout_site(site, dtype, dev):
+    """(s0, params, u, noise, out) of a rollout call as the
+    xprize-pipeline-f64 cell makes it: a sweep chunk (25 x 235 lanes, the
+    batch-last prescription, the trajectory into the horizon of (E, R, T)
+    buffers), the scenarios (3 x 235, the fields' horizon, with a noise
+    draw shared by the three) and the Monte Carlo (500 x 235, the
+    schedules at stride 0 over the regions, the sums alone)."""
+    R, H, Th = ROLLOUT_R, ROLLOUT_H, ROLLOUT_T_HIST
+    g = torch.Generator().manual_seed(11)
+    s0, p = rollout_params(R, dtype, 0, dev)
+    if site == "sweep chunk":
+        G = 25
+        u_bl = npi_levels(g, (H, G * R, 12), dtype, dev).permute(0, 2, 1)
+        u = u_bl.contiguous().reshape(H, 12, G, R).permute(2, 3, 0, 1)
+        out = tuple(torch.empty((G, R, Th + H), dtype=dtype,
+                                device=dev)[..., Th:] for _ in range(3))
+        return s0, p, u, None, out
+    if site == "scenarios":
+        G = 3
+        noise = torch.randn((R, H, 3), generator=g, dtype=torch.float64)
+        f = torch.empty((3, G, R, Th + H), dtype=dtype, device=dev)
+        return (s0, p, npi_levels(g, (G, R, H, 12), dtype, dev),
+                noise.to(dtype=dtype, device=dev).expand(G, R, H, 3),
+                tuple(f[k, ..., Th:] for k in range(3)))
+    u = npi_levels(g, (500, H, 12), dtype, dev)
+    return s0, p, u[:, None].expand(500, R, H, 12), None, None
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("site", ["sweep chunk", "scenarios", "monte carlo"])
+def test_rollout_kernel_matches_plain_at_the_cell_shapes(cuda, site, dtype):
+    """csrc/rollout.cu at the xprize-pipeline-f64 cell's three call sites
+    (H = 92, P = 12) against rollout_plain on the card in the same dtype:
+    each lane's horizon sum and every trajectory field within
+    chip_smoke's SI_ROLLOUT_BOUNDS, one launch, counted as
+    rollout.launches."""
+    s0, p, u, noise, out = _rollout_site(site, dtype, cuda)
+    before = rollout_kernel.launches
+    with recording() as rec:
+        got = rollout_kernel.rollout(s0, p, u, noise, out)
+    assert rollout_kernel.launches == before + 1
+    assert rec.counters["rollout.launches"] == 1
+    ref_out = None if out is None else tuple(torch.empty_like(o)
+                                             for o in out)
+    want = rollout_kernel.rollout_plain(s0, p, u, noise, ref_out)
+    assert got.dtype == dtype and got.device == cuda
+    assert bool(torch.isfinite(got).all())
+    assert scaled_err(got, want) < SI_ROLLOUT_BOUNDS[dtype]
+    for o, r in zip(out or (), ref_out or ()):
+        assert bool(torch.isfinite(o).all())
+        assert scaled_err(o, r) < SI_ROLLOUT_BOUNDS[dtype]
+
+
+def test_rollout_kernel_makes_no_host_sync(cuda):
+    """The kernel's call at each site under torch's sync debug mode
+    "error": no host sync (its clip bounds are literals, nothing goes to
+    the card from the host); the plain version, whose clips make their
+    bounds device tensors, raises there."""
+    sites = [_rollout_site(s, torch.float64, cuda)
+             for s in ("sweep chunk", "scenarios", "monte carlo")]
+    rollout_kernel.rollout(*sites[0])          # built and loaded first
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for args in sites:
+            rollout_kernel.rollout(*args)
+        with pytest.raises(RuntimeError):
+            rollout_kernel.rollout_plain(*sites[1])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def test_warm_float64_run_pipeline_launches_the_rollout_once_a_call(cuda):
+    """A warm float64 run_pipeline with 250 epsilons in chunks of 25 (20
+    regions, 120 + 92 days): 12 rollout launches (10 sweep chunks, the
+    scenarios, the Monte Carlo), and fewer than 2,500 device events in
+    all (the profiler's kernels, copies and sets; the eager rollouts made
+    ~43,000 at the cell)."""
+    from benchmark.trace import summarize
+    from torch.profiler import ProfilerActivity, profile
+    T_hist, H, E = 120, 92, 250
+    bt, bf, actual = small_region_inputs(n_regions=20, t_hist=T_hist,
+                                         horizon=H)
+    cfg = PipelineConfig(backend="pallas", pareto_chunk=25,
+                         num_monte_carlo=16)
+    eps = epsilon_grid(E).numpy()
+    u_random = random_npi_schedules(torch.Generator().manual_seed(1), 16,
+                                    np.zeros(12), NPI_MAXES_DEFAULT, H,
+                                    dtype=torch.float64).to(cuda)
+    run = lambda: run_pipeline(bt, bf, actual, T_hist, np.ones(12), eps,
+                               np.zeros(12), NPI_MAXES_DEFAULT, T_hist, cfg,
+                               dtype=torch.float64, device=cuda,
+                               u_random=u_random)
+    run()
+    torch.cuda.synchronize()
+    before = rollout_kernel.launches
+    with recording() as rec, profile(activities=[ProfilerActivity.CPU,
+                                                 ProfilerActivity.CUDA]) as pr:
+        res = run()
+        torch.cuda.synchronize()
+    assert rollout_kernel.launches - before == 12
+    assert rec.counters["rollout.launches"] == 12
+    events = summarize(pr, 0.0, 1).device_events
+    assert 0 < events < 2500, events
+    assert res.pareto["s"].shape == (E, 20, T_hist + H)
+    assert bool(torch.isfinite(res.pareto["J0"]).all())
+
+
+def test_float32_run_pipeline_kernels_against_plain_versions(cuda):
+    """The float32 run_pipeline held to its existing checks
+    (chip_smoke.small_reference_check: every kernel, the rollout's
+    included, against its plain version on the card at SMALL_REF_BOUNDS),
+    the rollout launched once a sweep chunk, once for the scenarios and
+    once for the Monte Carlo."""
+    from chip_smoke import small_reference_check
+    before = rollout_kernel.launches
+    small_reference_check(cuda)
+    assert rollout_kernel.launches - before == 16 // 4 + 2

@@ -23,7 +23,8 @@ import torch
 
 from chip_smoke import JAC_NNZ, PAIRWISE_ROW_BOUND, law_rows, row_err
 from epidemicmodeling_torch.ops.cuda import (ekf3_kernel, ekf6_kernel,
-                                             nnls_kernel, pairwise_kernel)
+                                             nnls_kernel, pairwise_kernel,
+                                             rollout_kernel)
 from epidemicmodeling_torch.ops.cuda.pairwise_kernel import (
     MAX_CHUNK, MIN_BLOCKS_PER_SM, SMS, pair_terms, pairwise_geometry)
 from epidemicmodeling_torch.spatial import PopulationSimConfig
@@ -519,3 +520,18 @@ def test_nnls_blocks_fit_one_wave_at_the_backtest_size(itemsize):
     fit = min(SMEM_PER_SM // (static + 1024),
               THREADS_PER_SM // nnls_kernel.THREADS)
     assert fit >= 2 and -(-R // fit) <= SMS
+
+
+def test_rollout_constants_match_the_source():
+    """The rollout wrapper's block size, its NPI count and its order of the
+    per-region parameters are csrc/rollout.cu's."""
+    assert _constant("rollout.cu", "THREADS") == rollout_kernel.THREADS
+    assert _constant("rollout.cu", "NPI") == rollout_kernel.NPI
+    m = re.search(r"enum \{ ([^}]+) \};", _source("rollout.cu"))
+    names = [n.strip() for n in m.group(1).split(",")]
+    assert names[-1] == "NPARAM"
+    assert len(names) - 1 == len(rollout_kernel.REGION_PARAMS) == 9
+    assert [n.lower() for n in names[:6]] == [
+        "dt", "beta", "gamma", "b", "alpha_min", "alpha_max"]
+    assert list(rollout_kernel.REGION_PARAMS[:6]) == [
+        "dt", "beta", "gamma", "b", "alpha_min", "alpha_max"]

@@ -440,11 +440,12 @@ def _port_stage_inputs(slice_inputs, jax_result, stochastic):
 
 def test_stochastic_rollout_and_scenarios_match_jax(slice_inputs, jax_result,
                                                     stochastic):
-    """_rollout_from, the three scenarios and scenario_from_schedule with
+    """The rollout from the end of the history (against the JAX package's
+    _rollout_from), the three scenarios and scenario_from_schedule with
     the JAX draws passed in as noise."""
     from epidemicmodeling_torch.pipelines import (forecast_scenarios,
                                                   scenario_from_schedule)
-    from epidemicmodeling_torch.pipelines.core import (_rollout_from,
+    from epidemicmodeling_torch.pipelines.core import (_rollout_fields,
                                                        stage_params)
     cfg, trained, init = _port_stage_inputs(slice_inputs, jax_result,
                                             stochastic)
@@ -454,9 +455,12 @@ def test_stochastic_rollout_and_scenarios_match_jax(slice_inputs, jax_result,
     s_hist = torch.from_numpy(np.array(st["s_hist"]))
     params = stage_params(cfg, d["bf"], trained, *args[1:], torch.float64,
                           torch.device("cpu"))
-    traj = _rollout_from(cfg, init, params, s_hist[:, -1, :],
-                         torch.from_numpy(st["plan"]),
-                         torch.from_numpy(st["scen_noise"]))
+    fields = _rollout_fields(cfg, init, params, s_hist,
+                             torch.from_numpy(st["plan"])[None],
+                             torch.from_numpy(st["scen_noise"]))
+    np.testing.assert_array_equal(fields[:, 0, :, :T_HIST].numpy(),
+                                  s_hist.permute(2, 0, 1).numpy())
+    traj = fields[:, 0, :, T_HIST:].permute(1, 2, 0)       # (R, H, 3)
     np.testing.assert_allclose(traj.numpy(), np.asarray(st["rollout"]), **TOL)
     scen, _ = forecast_scenarios(d["bf"], trained, init, *args, T_HIST, cfg,
                                  noise=st["scen_noise"], **kw)
