@@ -257,9 +257,8 @@ from epidemicmodeling_torch.ml.svr import svr_objective
 from epidemicmodeling_torch.models import (seirp_rollout,
                                            seirp_saturated_rollout)
 from epidemicmodeling_torch.ops.cuda import (build, ekf3_kernel, ekf6_kernel,
-                                             nnls_kernel, pairwise_kernel,
-                                             roofline_kernel, rollout_kernel,
-                                             stencil_kernel)
+                                             pairwise_kernel, roofline_kernel,
+                                             rollout_kernel, stencil_kernel)
 from epidemicmodeling_torch.ops.diagnostics import (filter_health,
                                                     summarize_health)
 from epidemicmodeling_torch.ops.ar import ar_design, ar_normal_matrix
@@ -398,11 +397,9 @@ KERNELS = {
              "Carlo (epidemicmodeling_tpu/pipelines/core.py), which the "
              "port ran as eager Python loops of small launches"),
 }
-LAUNCH_COUNTERS = {"ekf3": ekf3_kernel, "ekf6": ekf6_kernel,
-                   "stencil": stencil_kernel, "pairwise": pairwise_kernel,
-                   "roofline": roofline_kernel,
-                   "newcase_ekf": deploy_native, "nnls": nnls_kernel,
-                   "rollout": rollout_kernel}
+# the smoke's recording of the kernels' launches (reset_launches)
+_LAUNCHES = contextlib.ExitStack()
+_LAUNCH_REC = None
 
 # The card's published peaks (H100 SXM, 700 W):
 # device memory and float32 outside the tensor cores.
@@ -773,12 +770,21 @@ def rel_err(a, b) -> float:
 
 
 def reset_launches() -> None:
-    for mod in LAUNCH_COUNTERS.values():
-        mod.launches = 0
+    """Count the kernels' launches from here on: close the smoke's
+    recording (utils/profiling.py, whose counters are the launch counters)
+    and open a new one for read_launches. A recording opened inside it
+    takes its block's launches: read those from that recording."""
+    global _LAUNCH_REC
+    _LAUNCHES.close()
+    _LAUNCH_REC = _LAUNCHES.enter_context(recording())
 
 
-def read_launches() -> dict:
-    return {name: mod.launches for name, mod in LAUNCH_COUNTERS.items()}
+def read_launches(rec=None) -> dict:
+    """Each kernel's launches in the recording ``rec``, or in the smoke's
+    since reset_launches."""
+    rec = _LAUNCH_REC if rec is None else rec
+    return {name: 0 if rec is None else build.launches(rec, name)
+            for name in build.LAUNCHES}
 
 
 def other_launches(n: dict) -> dict:
@@ -875,13 +881,13 @@ def kernel_cases(bt, bf, actual, cfg, device):
 def compare_kernel(name, tag, args, device, bounds, timed):
     k = KERNELS[name]
     kw = dict(gamma_discount=0.995)
-    before = LAUNCH_COUNTERS[name].launches
-    got = k["run"](*args, **kw)
+    with recording() as rec:
+        got = k["run"](*args, **kw)
     ref = k["plain"](*args, **kw)
     torch.cuda.synchronize()
     T, _, B = args[0].shape
     if name == "ekf3":
-        made = LAUNCH_COUNTERS[name].launches - before
+        made = build.launches(rec, name)
         check(made == 1, f"ekf3 {tag}: {made} launches for one call")
     check(all(o.device == device for o in got),
           f"{name} {tag}: kernel output not on {device}")
@@ -1100,7 +1106,6 @@ def f64_path(device, bt, bf, actual):
 
     real3, real6 = ekf3_kernel.ekf3, ekf6_kernel.ekf6
     for run_tag in ("cold", "warm"):
-        reset_launches()
         if run_tag == "warm":
             ekf3_kernel.ekf3 = spy(real3, "ekf3")
             ekf6_kernel.ekf6 = spy(real6, "ekf6")
@@ -1115,7 +1120,7 @@ def f64_path(device, bt, bf, actual):
                 wall = time.perf_counter() - t0
         finally:
             ekf3_kernel.ekf3, ekf6_kernel.ekf6 = real3, real6
-        launches = read_launches()
+        launches = read_launches(rec)
         c = rec.counters
         share = c["ekf6.costate_nonfinite"] / (
             3 * (T_HIST + HORIZON) * c["ekf6.lanes"])
@@ -1397,10 +1402,9 @@ def nnls_counts(device, seed: int = 0):
     for its kernels-line entry."""
     X, y = backtest_regression(device, seed)
     R, n, p = X.shape
-    reset_launches()
     with recording() as rk:
         got = nnls_with_intercept(X, y)
-    launched = read_launches()
+    launched = read_launches(rk)
     with recording() as rp:
         want = nnls_with_intercept_plain(X, y)
     agree = nnls_agreement(X, y, got, want)
@@ -1571,10 +1575,11 @@ def multistep_phase(device):
                 for sources in (None, src):
                     frames = torch.empty((n,) + shape, dtype=dt,
                                          device=device)
-                    before = stencil_kernel.launches
-                    stencil_kernel.stencil_rollout(C, n, w, sources=sources,
-                                                   frames=frames)
-                    launched = stencil_kernel.launches - before
+                    with recording() as rec:
+                        stencil_kernel.stencil_rollout(C, n, w,
+                                                       sources=sources,
+                                                       frames=frames)
+                    launched = build.launches(rec, "stencil")
                     cur, loop = C, []
                     for t in range(n):
                         x = cur if sources is None else cur + sources[t]
@@ -4832,4 +4837,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    # close the launch recording before the interpreter tears down: left
+    # open, its close (which reads its device counts) runs at shutdown
+    with _LAUNCHES:
+        main()

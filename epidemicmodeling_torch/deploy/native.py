@@ -23,7 +23,8 @@ their sources and flags. ``device=None`` means the card
 (utils/device.resolve_device), which raises when there is none.
 ``newcase_ekf_sweep`` is the kernel's wrapper on tensors: it launches the
 kernel for CUDA tensors and runs the plain version (deploy/plain.py) for
-CPU tensors. ``launches`` counts the kernel's launches.
+CPU tensors. The recording in force (utils/profiling.py) counts the card
+build's launches as ``newcase_ekf.launches``.
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ import torch
 
 from ..ops.cuda import build as _build
 from ..utils.device import resolve_device
+from ..utils.profiling import count
 from .plain import pareto_sweep_plain
 
 M = 6
@@ -52,8 +54,6 @@ SRC = Path(__file__).resolve().parent / "src" / "newcase_ekf.cpp"
 HEADER = _build.CSRC / "newcase_ekf.cuh"
 # the JAX package's flags (epidemicmodeling_tpu/deploy/native.py:21)
 GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
-
-launches = 0
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _SINGLE = ([_P, _P, _I, _I] + [_D] * 8 + [_P] * 4 + [_P] * 4 + [_P] * 2
@@ -226,12 +226,10 @@ def newcase_ekf_sweep(dc: dict, eps: torch.Tensor, T_hist: int = 0,
             beta_ekf, gamma_ekf, L, device=dev)
         return {k: v for k, v in res.items()
                 if states or not k.startswith("S_")}
-    for k, v in [("eps", eps), ("sia_hist", sia_hist)] + list(dc.items()):
-        if isinstance(v, torch.Tensor) and (
-                v.device != dev or v.dtype != torch.float64
-                or not v.is_contiguous()):
-            raise ValueError(f"{k}: a contiguous float64 tensor on {dev} "
-                             f"expected, got {v.dtype} on {v.device}")
+    _build.check_args(
+        {k: v for k, v in [("eps", eps), ("sia_hist", sia_hist),
+                           *dc.items()] if isinstance(v, torch.Tensor)},
+        (torch.float64,), device=dev)
     T, P, E = dc["T"], dc["P"], eps.numel()
     new = lambda *shape: torch.empty(shape, dtype=torch.float64, device=dev)
     out = {"U_OPT_SMOOTH": new(E, T, P)}
@@ -240,18 +238,13 @@ def newcase_ekf_sweep(dc: dict, eps: torch.Tensor, T_hist: int = 0,
     if states:
         out.update(S_PLUS=new(E, T, M), S_SMOOTH=new(E, T, M))
     scratch = new(T * SCRATCH_PER_LANE_STEP * E)
-    lib = _card_lib()
     opt = lambda k: _ptr(out[k]) if k in out else None
-    global launches
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.newcase_ekf_sweep_device(
-            *_head(dc, T_hist, eps, E, beta_ekf, gamma_ekf, L),
-            None if sia_hist is None else _ptr(sia_hist), _ptr(scratch),
-            opt("U_OPT_SMOOTH"), opt("J0"), opt("J1"), opt("S_PLUS"),
-            opt("S_SMOOTH"), stream)
-        _build.check(lib, "newcase_ekf", "newcase_ekf_sweep_device", code)
-    launches += 1
+    _build.launch(
+        "newcase_ekf", _CARD_SIGNATURES, "newcase_ekf_sweep_device", dev,
+        *_head(dc, T_hist, eps, E, beta_ekf, gamma_ekf, L),
+        None if sia_hist is None else _ptr(sia_hist), _ptr(scratch),
+        opt("U_OPT_SMOOTH"), opt("J0"), opt("J1"), opt("S_PLUS"),
+        opt("S_SMOOTH"))
     return out
 
 
@@ -272,8 +265,7 @@ def sweep_host_entry(d: dict, eps, T_hist, sia_hist, beta_ekf=1.0,
         *_head(d, T_hist, eps, E, beta_ekf, gamma_ekf, L), _ptr(sia_hist),
         *(_ptr(v) for v in out.values()))
     _build.check(lib, "newcase_ekf", "newcase_ekf_pareto_sweep_cuda", code)
-    global launches
-    launches += 1
+    count(_build.LAUNCHES["newcase_ekf"])
     return out
 
 

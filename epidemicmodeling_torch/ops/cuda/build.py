@@ -6,6 +6,13 @@ the flags, under ``build/torch_kernels/`` at the root of the checkout, and
 loaded with ctypes. A change to a header rebuilds only the kernels that
 include it. Nothing here runs at import time, so the CPU tests import every
 module of the port on a machine with no CUDA toolkit.
+
+It is also every kernel wrapper's launch seam: ``instance`` maps a dtype
+to the C entry of its instance, ``check_args`` holds a launch's tensors to
+the rules every kernel shares (a wrapper keeps only its kernel's own
+limits), and ``launch`` calls an entry on the device's current stream and
+counts it as ``<kernel>.launches`` in the recording in force
+(utils/profiling.py), the one launch counter.
 """
 
 from __future__ import annotations
@@ -18,6 +25,10 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
+
+import torch
+
+from ...utils.profiling import count
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
@@ -43,6 +54,23 @@ SOURCES = {
 # multiply-add there
 EXTRA_FLAGS = {"newcase_ekf": ("--fmad=false",),
                "rollout": ("--fmad=false",)}
+
+# the dtypes the kernels' instances take, in the order of INSTANCES' pairs
+DTYPES = (torch.float32, torch.float64)
+# the C entries of each kernel that has a float and a double instance: the
+# entry that float32 and float64 pick (the EKS kernels' float entries are
+# older than their double twins and kept their names)
+INSTANCES = {
+    "ekf3_smoother": ("ekf3_smoother", "ekf3_smoother_f64"),
+    "ekf6_forward": ("ekf6_forward", "ekf6_forward_f64"),
+    "ekf6_backward": ("ekf6_backward", "ekf6_backward_f64"),
+    "nnls_intercept": ("nnls_intercept_f32", "nnls_intercept_f64"),
+    "nnls_masked_solve": ("nnls_masked_solve_f32", "nnls_masked_solve_f64"),
+    "rollout": ("rollout_f32", "rollout_f64"),
+    "stencil_rollout": ("stencil_rollout_f32", "stencil_rollout_f64"),
+}
+# the recording's counter of each kernel's launches
+LAUNCHES = {name: f"{name}.launches" for name in SOURCES}
 
 _lock = threading.Lock()
 _loaded: dict = {}
@@ -134,3 +162,63 @@ def check(lib: ctypes.CDLL, name: str, entry: str, code: int) -> None:
     if code != 0:
         msg = getattr(lib, f"{name}_error_string")(code).decode()
         raise RuntimeError(f"{entry} failed: CUDA error {code} ({msg})")
+
+
+def instance(entry: str, dtype) -> str:
+    """The C entry of ``entry``'s instance for ``dtype`` (INSTANCES): the
+    float one for float32, the double one for float64. Raises on any other
+    dtype: a kernel runs the caller's precision or none."""
+    if dtype not in DTYPES:
+        raise ValueError(f"{entry} takes float32 or float64 (got {dtype})")
+    return INSTANCES[entry][DTYPES.index(dtype)]
+
+
+def check_args(named: dict, dtypes=DTYPES, shapes=None, contiguous=True,
+               device=None) -> torch.device:
+    """Hold the tensors ``named`` (name -> tensor) to a kernel's rules, in
+    order: each a tensor of one dtype among ``dtypes``, the same for all;
+    a CUDA tensor on one device (``device`` where given); contiguous where
+    ``contiguous``; of the shape ``shapes[name]`` where ``shapes`` has it.
+    Raises ValueError naming the first tensor at fault; returns the
+    device."""
+    takes = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
+    dtype = None
+    for name, t in named.items():
+        if not isinstance(t, torch.Tensor):
+            raise ValueError(f"{name} must be a CUDA tensor (got "
+                             f"{type(t).__name__})")
+        if t.dtype not in dtypes or t.dtype != (dtype or t.dtype):
+            raise ValueError(f"{name} is {t.dtype}: the kernel takes "
+                             f"{takes}, one dtype for every input")
+        if t.device.type != "cuda" or t.device != (device or t.device):
+            raise ValueError(f"{name} must be a CUDA tensor (got "
+                             f"{t.device}): the kernel takes CUDA tensors on "
+                             "one device")
+        if contiguous and not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if shapes and name in shapes and t.shape != tuple(shapes[name]):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                             f"{tuple(shapes[name])}")
+        dtype, device = t.dtype, t.device
+    return device
+
+
+def launch(kernel: str, signatures: dict, entry: str, device, *args,
+           n=1) -> None:
+    """Call the C entry ``entry`` of the kernel ``kernel`` (loaded with
+    ``signatures``, built at first use) on ``device``, with ``args`` and
+    the device's current stream last; raise if it returned a CUDA error;
+    count ``n`` launches of the kernel (LAUNCHES[kernel]) in the recording
+    in force. ``n`` may be a ctypes int that the entry writes the number of
+    its launches into."""
+    lib = load(kernel, signatures)
+    with torch.cuda.device(device):
+        code = getattr(lib, entry)(
+            *args, torch.cuda.current_stream(device).cuda_stream)
+    check(lib, kernel, entry, code)
+    count(LAUNCHES[kernel], n if isinstance(n, int) else n.value)
+
+
+def launches(rec, kernel: str) -> int:
+    """The launches of ``kernel`` counted in the recording ``rec``."""
+    return rec.counters.get(LAUNCHES[kernel], 0)

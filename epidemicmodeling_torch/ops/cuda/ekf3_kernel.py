@@ -17,11 +17,10 @@ restates the kernel's choice of lanes a block.
 
 ``ekf3`` launches the kernel for CUDA tensors (contiguous, all float32 or
 all float64: the dtype picks the kernel's float or double instance,
-``card_entry``) and raises on anything it cannot take. For CPU tensors it
-runs ``ekf3_plain``, the same computation on the port's batch-last core, in
-the inputs' dtype. ``launches`` counts the kernel launches (one per call),
-which the recording in force (utils/profiling.py) also counts as
-``ekf3.launches``.
+``build.instance``) and raises on anything it cannot take. For CPU tensors
+it runs ``ekf3_plain``, the same computation on the port's batch-last core,
+in the inputs' dtype. The recording in force (utils/profiling.py) counts
+the kernel's launches (one a call) as ``ekf3.launches``.
 """
 
 from __future__ import annotations
@@ -33,7 +32,6 @@ from typing import NamedTuple
 import torch
 
 from ..ekf_bl import ekf_smoother_bl
-from ...utils.profiling import count
 from ...models.batch_last import si_alpha_ekf_system_bl
 from . import build as _build
 from .shard import map_lanes
@@ -57,28 +55,12 @@ NIN = NPI + 2
 REC = 18
 RREC = 15
 
-launches = 0
-
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _F, _D = ctypes.c_float, ctypes.c_double
 _SIGNATURES = {
     "ekf3_smoother": [_P] * 12 + [_I, _I, _F, _I, _F, _F, _I, _P],
     "ekf3_smoother_f64": [_P] * 12 + [_I, _I, _D, _I, _D, _D, _I, _P],
 }
-# the dtypes the kernels take: the suffix of each instance's C entries
-# (none for the float one)
-INSTANCES = {torch.float32: "", torch.float64: "_f64"}
-
-
-def card_entry(entry: str, dtype) -> str:
-    """The C entry ``entry`` of the instance that ``dtype`` picks: the
-    float instance for float32, the double one for float64. Raises on any
-    other dtype: the card runs the caller's precision or none."""
-    if dtype not in INSTANCES:
-        raise ValueError(f"the EKS kernels take float32 or float64 (got "
-                         f"{dtype})")
-    return entry + INSTANCES[dtype]
-
 
 class Ekf3Geometry(NamedTuple):
     lanes: int          # lanes a block (one thread each, warp 0)
@@ -113,30 +95,6 @@ def check_options(obs_type, beta, inv_monitor_len):
         raise ValueError("adaptive R (beta != 1) needs 0 < inv_monitor_len "
                          f"<= {MAX_MONITOR} (the R_hat window, "
                          "GEKF.m:180-185)")
-
-
-def check_kernel_args(named: dict, shapes: dict) -> torch.device:
-    """Every tensor CUDA, contiguous, on one device, of one dtype the
-    kernels take (float32 or float64), with the expected shape. Returns the
-    device."""
-    dev = dtype = None
-    for name, t in named.items():
-        if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
-            raise ValueError(f"{name} must be a CUDA tensor")
-        if dev is None:
-            dev, dtype = t.device, t.dtype
-            card_entry("", dtype)
-        elif t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, expected {dev}")
-        if t.dtype != dtype:
-            raise ValueError(f"{name} is {t.dtype}, expected {dtype} (one "
-                             "dtype for every input)")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if tuple(t.shape) != shapes[name]:
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                             f"expected {shapes[name]}")
-    return dev
 
 
 def _unpack(scal, vecs, Ps_init, s_final, Ps_final):
@@ -187,31 +145,24 @@ def ekf3(u, x, Rv, scal, vecs, s_init, Ps_init, s_final, Ps_final,
     T, _, B = u.shape
     args = dict(u=u, x=x, Rv=Rv, scal=scal, vecs=vecs, s_init=s_init,
                 Ps_init=Ps_init, s_final=s_final, Ps_final=Ps_final)
-    dev = check_kernel_args(args, dict(
+    dev = _build.check_args(args, shapes=dict(
         u=(T, NPI, B), x=(T, B), Rv=(T, B), scal=(NSCAL, B),
         vecs=(2, NPI, B), s_init=(M3, B), Ps_init=(M3 * M3, B),
         s_final=(M3, B), Ps_final=(M3 * M3, B)))
-    lib = _build.load("ekf3", _SIGNATURES)
-    entry = card_entry("ekf3_smoother", u.dtype)
     out = dict(dtype=u.dtype, device=dev)
     S_MINUS = torch.empty((T, M3, B), **out)
     S_PLUS = torch.empty((T, M3, B), **out)
     S_SMOOTH = torch.empty((T, M3, B), **out)
     g = ekf3_geometry(T, B, u.element_size())
     hist = torch.empty((T, REC, B), **out) if g.hist_floats else None
-    global launches
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = getattr(lib, entry)(
-            u.data_ptr(), x.data_ptr(), Rv.data_ptr(), scal.data_ptr(),
-            vecs.data_ptr(), s_init.data_ptr(), Ps_init.data_ptr(),
-            s_final.data_ptr(), S_MINUS.data_ptr(), S_PLUS.data_ptr(),
-            S_SMOOTH.data_ptr(), None if hist is None else hist.data_ptr(),
-            T, B, float(gamma_discount), int(obs_type == "TOTALCASES"),
-            float(beta), float(1.0 - beta), int(inv_monitor_len), stream)
-    _build.check(lib, "ekf3", entry, code)
-    launches += 1
-    count("ekf3.launches")
+    _build.launch(
+        "ekf3", _SIGNATURES, _build.instance("ekf3_smoother", u.dtype), dev,
+        u.data_ptr(), x.data_ptr(), Rv.data_ptr(), scal.data_ptr(),
+        vecs.data_ptr(), s_init.data_ptr(), Ps_init.data_ptr(),
+        s_final.data_ptr(), S_MINUS.data_ptr(), S_PLUS.data_ptr(),
+        S_SMOOTH.data_ptr(), None if hist is None else hist.data_ptr(),
+        T, B, float(gamma_discount), int(obs_type == "TOTALCASES"),
+        float(beta), float(1.0 - beta), int(inv_monitor_len))
     return S_SMOOTH, S_PLUS, S_MINUS
 
 

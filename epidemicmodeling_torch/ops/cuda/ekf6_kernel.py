@@ -22,12 +22,12 @@ backward are two launches on PyTorch's current stream.
 
 ``ekf6`` launches the kernel for CUDA tensors (contiguous, all float32 or
 all float64: the dtype picks the kernels' float or double instance,
-``ekf3_kernel.card_entry``; the MATLAB reference computes in double) and
-raises on anything it cannot take. For CPU tensors it runs ``ekf6_plain``,
-the same computation on the port's batch-last core, in the inputs' dtype.
-``launches`` counts the kernel launches (one per forward+backward pair);
-the recording in force (utils/profiling.py) counts them as
-``ekf6.launches`` and their lanes as ``ekf6.lanes``.
+``build.instance``; the MATLAB reference computes in double) and raises on
+anything it cannot take. For CPU tensors it runs ``ekf6_plain``, the same
+computation on the port's batch-last core, in the inputs' dtype. The
+recording in force (utils/profiling.py) counts the kernel's launches (one
+a forward and backward pair) as ``ekf6.launches`` and their lanes as
+``ekf6.lanes``.
 """
 
 from __future__ import annotations
@@ -40,7 +40,7 @@ from ..ekf_bl import ekf_smoother_bl
 from ...utils.profiling import count
 from ...models.batch_last import si_alpha_costate_ekf_system_bl
 from . import build as _build
-from .ekf3_kernel import card_entry, check_kernel_args, check_options
+from .ekf3_kernel import check_options
 
 M = 6
 NPI = 12
@@ -48,8 +48,6 @@ NSCAL = 14
 # the kernel's team layout (csrc/ekf6.cu: LANES, BLOCK)
 LANES = 32
 BLOCK = M * LANES
-
-launches = 0
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _F, _D = ctypes.c_float, ctypes.c_double
@@ -105,13 +103,10 @@ def ekf6(u, x, Rv, scal, vecs, s_init, Ps_init, s_final, Ps_final,
     T, _, B = u.shape
     args = dict(u=u, x=x, Rv=Rv, scal=scal, vecs=vecs, s_init=s_init,
                 Ps_init=Ps_init, s_final=s_final, Ps_final=Ps_final)
-    dev = check_kernel_args(args, dict(
+    dev = _build.check_args(args, shapes=dict(
         u=(T, NPI, B), x=(T, B), Rv=(T, B), scal=(NSCAL, B),
         vecs=(4, NPI, B), s_init=(M, B), Ps_init=(M * M, B),
         s_final=(M, B), Ps_final=(M * M, B)))
-    lib = _build.load("ekf6", _SIGNATURES)
-    fwd = card_entry("ekf6_forward", u.dtype)
-    bwd = card_entry("ekf6_backward", u.dtype)
     out = dict(dtype=u.dtype, device=dev)
     S_MINUS = torch.empty((T, M, B), **out)
     S_PLUS = torch.empty((T, M, B), **out)
@@ -120,25 +115,21 @@ def ekf6(u, x, Rv, scal, vecs, s_init, Ps_init, s_final, Ps_final,
     P_PLUS = torch.empty((T, M * (M + 1) // 2, B), **out)
     S_SMOOTH = torch.empty((T, M, B), **out)
     U_SM = torch.empty((T, NPI, B), **out)
-    global launches
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = getattr(lib, fwd)(
-            u.data_ptr(), x.data_ptr(), Rv.data_ptr(), scal.data_ptr(),
-            vecs.data_ptr(), s_init.data_ptr(), Ps_init.data_ptr(),
-            S_MINUS.data_ptr(), S_PLUS.data_ptr(), P_MINUS.data_ptr(),
-            P_PLUS.data_ptr(), T, B, float(gamma_discount),
-            int(obs_type == "TOTALCASES"), float(beta), float(1.0 - beta),
-            int(inv_monitor_len), stream)
-        _build.check(lib, "ekf6", fwd, code)
-        code = getattr(lib, bwd)(
-            u.data_ptr(), S_PLUS.data_ptr(), S_MINUS.data_ptr(),
-            P_PLUS.data_ptr(), P_MINUS.data_ptr(), scal.data_ptr(),
-            vecs.data_ptr(), s_final.data_ptr(), Ps_final.data_ptr(),
-            S_SMOOTH.data_ptr(), U_SM.data_ptr(), T, B, stream)
-        _build.check(lib, "ekf6", bwd, code)
-    launches += 1
-    count("ekf6.launches")
+    # the pair counts as one launch
+    _build.launch(
+        "ekf6", _SIGNATURES, _build.instance("ekf6_forward", u.dtype), dev,
+        u.data_ptr(), x.data_ptr(), Rv.data_ptr(), scal.data_ptr(),
+        vecs.data_ptr(), s_init.data_ptr(), Ps_init.data_ptr(),
+        S_MINUS.data_ptr(), S_PLUS.data_ptr(), P_MINUS.data_ptr(),
+        P_PLUS.data_ptr(), T, B, float(gamma_discount),
+        int(obs_type == "TOTALCASES"), float(beta), float(1.0 - beta),
+        int(inv_monitor_len), n=0)
+    _build.launch(
+        "ekf6", _SIGNATURES, _build.instance("ekf6_backward", u.dtype), dev,
+        u.data_ptr(), S_PLUS.data_ptr(), S_MINUS.data_ptr(),
+        P_PLUS.data_ptr(), P_MINUS.data_ptr(), scal.data_ptr(),
+        vecs.data_ptr(), s_final.data_ptr(), Ps_final.data_ptr(),
+        S_SMOOTH.data_ptr(), U_SM.data_ptr(), T, B)
     count("ekf6.lanes", B)
     return S_SMOOTH, U_SM, S_PLUS
 

@@ -19,9 +19,8 @@ reductions. Nothing returns to the host until the launch ends.
 strides) and raises on anything it cannot take; regression/nnls.py routes
 CUDA tensors here and CPU tensors to the plain version. ``masked_solve``
 runs the kernel's masked Cholesky solve alone and is for the tests only: no
-path of the port calls it. ``launches``
-counts the launches of ``nnls_intercept``, which also counts each as
-``nnls.launches`` in the recording in force (utils/profiling.py).
+path of the port calls it. The recording in force (utils/profiling.py)
+counts the launches of both as ``nnls.launches``.
 """
 
 from __future__ import annotations
@@ -30,14 +29,11 @@ import ctypes
 
 import torch
 
-from ...utils.profiling import count
 from . import build as _build
 
 # csrc/nnls.cu: threads a block and the most columns (one lane each)
 THREADS = 256
 MAX_P = 32
-
-launches = 0
 
 _P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _NNLS = [_P, _L, _L, _L, _P, _L, _L, _I, _I, _I, _I, _P, _P, _P, _P]
@@ -45,26 +41,15 @@ _SOLVE = [_P, _P, _P, _P, _I, _I, _P]
 _SIGNATURES = {"nnls_intercept_f32": _NNLS, "nnls_intercept_f64": _NNLS,
                "nnls_masked_solve_f32": _SOLVE,
                "nnls_masked_solve_f64": _SOLVE}
-_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
 def _check(named: dict, p: int) -> torch.device:
-    """One dtype the kernel takes, 1 <= p <= MAX_P, every tensor CUDA and
-    on one device. Returns the device."""
-    dtypes = {t.dtype for t in named.values()}
-    if len(dtypes) != 1 or next(iter(dtypes)) not in _SUFFIX:
-        raise ValueError("the NNLS kernel takes float32 or float64, one "
-                         f"dtype for all inputs (got {sorted(map(str, dtypes))})")
+    """1 <= p <= MAX_P, then build.check_args (any strides). Returns the
+    device."""
     if not 1 <= p <= MAX_P:
         raise ValueError(f"the NNLS kernel takes 1 to {MAX_P} columns "
                          f"(a lane each), got p = {p}")
-    devices = {t.device for t in named.values()}
-    for name, t in named.items():
-        if t.device.type != "cuda":
-            raise ValueError(f"{name} must be a CUDA tensor (got {t.device})")
-    if len(devices) != 1:
-        raise ValueError(f"the inputs lie on several devices: {devices}")
-    return next(iter(devices))
+    return _build.check_args(named, contiguous=False)
 
 
 def nnls_intercept(X: torch.Tensor, y: torch.Tensor, iterations: int):
@@ -83,21 +68,13 @@ def nnls_intercept(X: torch.Tensor, y: torch.Tensor, iterations: int):
         raise ValueError(f"the NNLS kernel needs R, n >= 1, got {R}, {n}")
     if int(iterations) < 0:
         raise ValueError(f"iterations must be >= 0, got {iterations}")
-    lib = _build.load("nnls", _SIGNATURES)
-    entry = f"nnls_intercept_{_SUFFIX[X.dtype]}"
     a = torch.empty((R, p), dtype=X.dtype, device=dev)
     b = torch.empty(R, dtype=X.dtype, device=dev)
     counts = torch.empty((R, 3), dtype=torch.int32, device=dev)
-    global launches
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = getattr(lib, entry)(
-            X.data_ptr(), *X.stride(), y.data_ptr(), *y.stride(), R, n, p,
-            int(iterations), a.data_ptr(), b.data_ptr(), counts.data_ptr(),
-            stream)
-    _build.check(lib, "nnls", entry, code)
-    launches += 1
-    count("nnls.launches")
+    _build.launch(
+        "nnls", _SIGNATURES, _build.instance("nnls_intercept", X.dtype), dev,
+        X.data_ptr(), *X.stride(), y.data_ptr(), *y.stride(), R, n, p,
+        int(iterations), a.data_ptr(), b.data_ptr(), counts.data_ptr())
     return a, b, counts
 
 
@@ -113,12 +90,8 @@ def masked_solve(G: torch.Tensor, c: torch.Tensor, P: torch.Tensor):
     dev = _check(dict(G=G, c=c), p)
     G, c = G.contiguous(), c.contiguous()
     P = P.to(device=dev, dtype=torch.uint8).contiguous()
-    lib = _build.load("nnls", _SIGNATURES)
-    entry = f"nnls_masked_solve_{_SUFFIX[c.dtype]}"
     z = torch.empty((R, p), dtype=c.dtype, device=dev)
-    with torch.cuda.device(dev):
-        code = getattr(lib, entry)(
-            G.data_ptr(), c.data_ptr(), P.data_ptr(), z.data_ptr(), R, p,
-            torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, "nnls", entry, code)
+    _build.launch(
+        "nnls", _SIGNATURES, _build.instance("nnls_masked_solve", c.dtype),
+        dev, G.data_ptr(), c.data_ptr(), P.data_ptr(), z.data_ptr(), R, p)
     return z

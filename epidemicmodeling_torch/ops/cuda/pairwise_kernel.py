@@ -18,7 +18,8 @@ ragged edges are masked by index, so nothing is padded.
 cannot take; for a CPU tensor it runs ``social_forces_plain``, the same law
 as one (N, N + O) broadcast. Both compute in float32 whatever the input
 dtype, as social_forces_pallas does, and cast the forces back to the
-positions' dtype. ``launches`` counts the kernel launches.
+positions' dtype. The recording in force (utils/profiling.py) counts the
+kernel's launches as ``pairwise.launches``.
 """
 
 from __future__ import annotations
@@ -32,12 +33,9 @@ import torch
 
 from . import build as _build
 
-launches = 0
-
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {"pairwise_forces": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F,
                                      _F, _F, _P]}
-_DTYPES = (torch.float32, torch.float64)
 F32 = torch.float32
 
 # The kernel's launch constants (csrc/pairwise.cu: THREADS, ROWS,
@@ -90,7 +88,7 @@ def _check_points(**named) -> None:
         if (not isinstance(t, torch.Tensor) or t.dim() != 2
                 or t.shape[1] != 2):
             raise ValueError(f"{name} must be an (n, 2) tensor")
-        if t.dtype not in _DTYPES:
+        if t.dtype not in _build.DTYPES:
             raise ValueError(f"{name} must be float32 or float64 "
                              f"(got {t.dtype})")
 
@@ -157,32 +155,23 @@ def social_forces(pos, obstacle_xy, cfg):
     _check_points(pos=pos, obstacle_xy=obstacle_xy)
     if pos.device.type == "cpu":
         return social_forces_plain(pos, obstacle_xy, cfg)
-    if pos.device.type != "cuda" or obstacle_xy.device != pos.device:
-        raise ValueError(f"pos and obstacle_xy must be CUDA tensors on one "
-                         f"device (got {pos.device} and "
-                         f"{obstacle_xy.device})")
-    if not (pos.is_contiguous() and obstacle_xy.is_contiguous()):
-        raise ValueError("pos and obstacle_xy must be contiguous")
+    # each in its own dtype: both are computed in float32
+    dev = _build.check_args(dict(pos=pos))
+    _build.check_args(dict(obstacle_xy=obstacle_xy), device=dev)
     p, o = pos.to(F32), obstacle_xy.to(F32)
     N, O = p.shape[0], o.shape[0]
-    out = torch.empty((N, 2), dtype=F32, device=pos.device)
+    out = torch.empty((N, 2), dtype=F32, device=dev)
     if N == 0:
         return out.to(pos.dtype)
     if p.data_ptr() % 8 or (O and o.data_ptr() % 8):
         raise ValueError("pos and obstacle_xy must start on an 8-byte "
                          "boundary (the kernel reads (x, y) pairs)")
     g = pairwise_geometry(N, O)
-    partial = torch.empty(g.scratch, dtype=F32, device=pos.device)
-    lib = _build.load("pairwise", _SIGNATURES)
-    global launches
-    with torch.cuda.device(pos.device):
-        stream = torch.cuda.current_stream(pos.device).cuda_stream
-        code = lib.pairwise_forces(
-            p.data_ptr(), o.data_ptr(), partial.data_ptr(), out.data_ptr(),
-            N, O, g.chunk, g.chunks, float(cfg.subject_subject_weight),
-            float(cfg.subject_obstacle_weight),
-            float(cfg.inter_subject_opt_dist),
-            float(cfg.no_further_effect_dist), stream)
-    _build.check(lib, "pairwise", "pairwise_forces", code)
-    launches += 1
+    partial = torch.empty(g.scratch, dtype=F32, device=dev)
+    _build.launch(
+        "pairwise", _SIGNATURES, "pairwise_forces", dev, p.data_ptr(),
+        o.data_ptr(), partial.data_ptr(), out.data_ptr(), N, O, g.chunk,
+        g.chunks, float(cfg.subject_subject_weight),
+        float(cfg.subject_obstacle_weight),
+        float(cfg.inter_subject_opt_dist), float(cfg.no_further_effect_dist))
     return out.to(pos.dtype)

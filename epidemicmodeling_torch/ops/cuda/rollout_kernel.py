@@ -18,9 +18,9 @@ Routing, by what the inputs show: CPU tensors run ``rollout_plain`` (the
 eager loop of models/si_alpha.si_alpha_step_fields, which the CPU tests
 hold against the JAX package); any other device runs the kernel, which
 takes CUDA tensors in float32 or float64 and raises on anything else. There
-is no fallback, and the pipeline's backend does not enter. ``launches``
-counts the kernel's launches, which also count as ``rollout.launches`` in
-the recording in force (utils/profiling.py).
+is no fallback, and the pipeline's backend does not enter. The recording
+in force (utils/profiling.py) counts the kernel's launches as
+``rollout.launches``.
 """
 
 from __future__ import annotations
@@ -31,7 +31,6 @@ from typing import Optional
 import torch
 
 from ...models.si_alpha import si_alpha_step_fields
-from ...utils.profiling import count
 from . import build as _build
 
 # csrc/rollout.cu: threads a block (one lane each) and the NPIs it takes
@@ -41,12 +40,9 @@ NPI = 12
 REGION_PARAMS = ("dt", "beta", "gamma", "b", "alpha_min", "alpha_max",
                  "s_noise_std", "i_noise_std", "alpha_noise_std")
 
-launches = 0
-
 _P, _L = ctypes.c_void_p, ctypes.c_longlong
 _ENTRY = [_L, _L, _L, _L] + [_P] * 16
 _SIGNATURES = {"rollout_f32": _ENTRY, "rollout_f64": _ENTRY}
-_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
 def _check_shapes(s0, params, u, noise, out):
@@ -119,29 +115,10 @@ def rollout_cuda(s0, params, u, noise=None, out=None) -> torch.Tensor:
         named["noise"] = noise
     for k, o in enumerate(out or ()):
         named[f"out[{k}]"] = o
-    dtypes = {t.dtype for t in named.values()}
-    if len(dtypes) != 1 or u.dtype not in _SUFFIX:
-        got = sorted(map(str, dtypes))
-        raise ValueError("the rollout kernel takes float32 or float64, one "
-                         f"dtype for all inputs (got {got})")
-    for name, t in named.items():
-        if t.device.type != "cuda":
-            raise ValueError(f"{name} must be a CUDA tensor (got {t.device})")
-    devices = {t.device for t in named.values()}
-    if len(devices) != 1:
-        raise ValueError(f"the inputs lie on several devices: {devices}")
-    dev = u.device
-    lib = _build.load("rollout", _SIGNATURES)
-    entry = f"rollout_{_SUFFIX[u.dtype]}"
+    dev = _build.check_args(named, contiguous=False)
     cases = torch.empty((G, R), dtype=u.dtype, device=dev)
-    global launches
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = getattr(lib, entry)(
-            *entry_args(s0, params, u, noise, out, cases), stream)
-    _build.check(lib, "rollout", entry, code)
-    launches += 1
-    count("rollout.launches")
+    _build.launch("rollout", _SIGNATURES, _build.instance("rollout", u.dtype),
+                  dev, *entry_args(s0, params, u, noise, out, cases))
     return cases
 
 

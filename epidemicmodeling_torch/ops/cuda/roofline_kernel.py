@@ -10,8 +10,8 @@ the device-memory rate that the other kernels' bounds assume.
 is bound by the float32 rate, ``copy_plus_one`` (x + 1) by device memory.
 Both launch the kernel for a contiguous float32 CUDA tensor whose size is a
 multiple of 4 and that starts on a 16-byte boundary, and raise on anything
-else; on a CPU tensor they run their plain versions. ``launches`` counts the
-kernel launches.
+else; on a CPU tensor they run their plain versions. The recording in force
+(utils/profiling.py) counts their launches as ``roofline.launches``.
 
 The copy is a persistent ring of TMA bulk copies (csrc/roofline.cu):
 ``copy_geometry`` restates its launch, and ``library_copy_geometry`` asks
@@ -31,8 +31,6 @@ DEPTH = 512
 # the kernel's float32 constants, as Python floats
 FMA_A, FMA_B = (float(torch.tensor(v, dtype=torch.float32))
                 for v in (1.0000001, 1e-9))
-
-launches = 0
 
 _P, _L = ctypes.c_void_p, ctypes.c_longlong
 _SIGNATURES = {"roofline_fma": [_P, _P, _L, _P],
@@ -97,19 +95,13 @@ def _launch(entry, x, plain):
         raise ValueError("x must be a float32 tensor")
     if x.device.type == "cpu":
         return plain(x)
-    if (x.device.type != "cuda" or not x.is_contiguous() or x.numel() == 0
-            or x.numel() % 4 or x.data_ptr() % 16):
-        raise ValueError("x must be a contiguous CUDA tensor of 4k > 0 "
-                         "elements on a 16-byte boundary")
+    dev = _build.check_args(dict(x=x), (torch.float32,))
+    if x.numel() == 0 or x.numel() % 4 or x.data_ptr() % 16:
+        raise ValueError("x must hold 4k > 0 elements and start on a "
+                         "16-byte boundary")
     out = torch.empty_like(x)
-    lib = _build.load("roofline", _SIGNATURES)
-    global launches
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = getattr(lib, entry)(x.data_ptr(), out.data_ptr(), x.numel(),
-                                   stream)
-    _build.check(lib, "roofline", entry, code)
-    launches += 1
+    _build.launch("roofline", _SIGNATURES, entry, dev, x.data_ptr(),
+                  out.data_ptr(), x.numel())
     return out
 
 

@@ -20,8 +20,9 @@ nothing.
 ``stencil_rollout`` launches the kernel for a CUDA field (float32 or
 float64, contiguous) and raises on anything it cannot take; for a CPU field
 it runs ``stencil_rollout_plain``, the same steps as a Python loop over
-``stencil_plain``. ``stencil`` is the one-step case. ``launches`` counts the
-kernel launches.
+``stencil_plain``. ``stencil`` is the one-step case. The recording in
+force (utils/profiling.py) counts the kernel's launches as
+``stencil.launches``.
 """
 
 from __future__ import annotations
@@ -33,8 +34,6 @@ import torch
 
 from . import build as _build
 
-launches = 0
-
 # csrc/stencil.cu: threads of a block (= box columns), box rows and steps a
 # launch by dtype
 THREADS = 256
@@ -45,14 +44,12 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _ROLLOUT_ARGS = [_P] * 6 + [_I] * 5 + [_P, _I, _P, _P]
 _SIGNATURES = {"stencil_rollout_f32": _ROLLOUT_ARGS,
                "stencil_rollout_f64": _ROLLOUT_ARGS}
-_ENTRY = {torch.float32: "stencil_rollout_f32",
-          torch.float64: "stencil_rollout_f64"}
 
 
 def _check_field(C) -> None:
     if not isinstance(C, torch.Tensor) or C.dim() != 2:
         raise ValueError("the field must be a 2-D tensor (Lx, Ly)")
-    if C.dtype not in _ENTRY:
+    if C.dtype not in _build.DTYPES:
         raise ValueError(f"the field must be float32 or float64 "
                          f"(got {C.dtype})")
 
@@ -113,14 +110,6 @@ def stencil_rollout_plain(C, n_steps, weights, sources=None, cells=None,
     return cur
 
 
-def _check_like(name, t, shape, dtype, device) -> None:
-    if (not isinstance(t, torch.Tensor) or t.device != device
-            or t.dtype != dtype or tuple(t.shape) != tuple(shape)
-            or not t.is_contiguous()):
-        raise ValueError(f"{name} must be a contiguous {dtype} tensor of "
-                         f"shape {tuple(shape)} on {device}")
-
-
 def _overlaps(a, b) -> bool:
     a0, b0 = a.data_ptr(), b.data_ptr()
     return (a0 < b0 + b.numel() * b.element_size()
@@ -145,21 +134,19 @@ def stencil_rollout(C, n_steps, weights, sources=None, cells=None,
     if C.device.type == "cpu":
         return stencil_rollout_plain(C, n_steps, weights, sources, cells,
                                      amounts, frames, out)
-    if C.device.type != "cuda":
-        raise ValueError(f"the field is on {C.device}: expected a CUDA or "
-                         "CPU tensor")
-    if not C.is_contiguous():
-        raise ValueError("the field must be contiguous")
+    dev, dt = _build.check_args(dict(field=C)), C.dtype
+    # a tensor that goes with the field: its device, contiguous, the shape
+    like = lambda name, t, *shape, dtype=dt: _build.check_args(
+        {name: t}, (dtype,), {name: shape}, device=dev)
     n = int(n_steps)
     if n < 1:
         raise ValueError("n_steps must be >= 1")
     ws = step_weights(weights, n)
     Lx, Ly = C.shape
-    dev, dt = C.device, C.dtype
     if Lx * Ly >= 2 ** 31:
         raise ValueError("the field must have fewer than 2**31 cells")
     if sources is not None:
-        _check_like("sources", sources, (n, Lx, Ly), dt, dev)
+        like("sources", sources, n, Lx, Ly)
     W = n_inj = 0
     if cells is not None and cells.numel() == 0:   # no walker: nothing to add
         cells = amounts = None
@@ -169,20 +156,20 @@ def stencil_rollout(C, n_steps, weights, sources=None, cells=None,
             raise ValueError("cells must be a (k, W) tensor with "
                              "1 <= k <= n_steps")
         n_inj, W = cells.shape
-        _check_like("cells", cells, (n_inj, W), torch.int32, dev)
-        _check_like("amounts", amounts, (n_inj, W), dt, dev)
+        like("cells", cells, n_inj, W, dtype=torch.int32)
+        like("amounts", amounts, n_inj, W)
     elif amounts is not None:
         raise ValueError("amounts need cells")
     scratch = None
     if frames is not None:
-        _check_like("frames", frames, (n, Lx, Ly), dt, dev)
+        like("frames", frames, n, Lx, Ly)
         if out is not None:
             raise ValueError("give frames or out, not both")
         dst = frames
     else:
         if out is None:
             out = torch.empty_like(C, memory_format=torch.contiguous_format)
-        _check_like("out", out, (Lx, Ly), dt, dev)
+        like("out", out, Lx, Ly)
         dst = out
         if math.ceil(n / STEPS_PER_LAUNCH[dt]) > 1:
             scratch = torch.empty_like(out)
@@ -191,17 +178,11 @@ def stencil_rollout(C, n_steps, weights, sources=None, cells=None,
     w = (ctypes.c_double * (3 * n))(*(x for t in ws for x in t))
     launched = ctypes.c_int(0)
     ptr = lambda t: None if t is None else t.data_ptr()
-    entry = _ENTRY[dt]
-    lib = _build.load("stencil", _SIGNATURES)
-    global launches
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = getattr(lib, entry)(
-            C.data_ptr(), dst.data_ptr(), ptr(scratch), ptr(sources),
-            ptr(cells), ptr(amounts), W, n_inj, Lx, Ly, n, w,
-            int(frames is not None), ctypes.byref(launched), stream)
-    launches += launched.value
-    _build.check(lib, "stencil", entry, code)
+    _build.launch(
+        "stencil", _SIGNATURES, _build.instance("stencil_rollout", dt), dev,
+        C.data_ptr(), dst.data_ptr(), ptr(scratch), ptr(sources),
+        ptr(cells), ptr(amounts), W, n_inj, Lx, Ly, n, w,
+        int(frames is not None), ctypes.byref(launched), n=launched)
     return frames[-1] if frames is not None else out
 
 

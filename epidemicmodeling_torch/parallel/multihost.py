@@ -36,7 +36,9 @@ import tempfile
 import numpy as np
 import torch
 
+from ..ops.cuda import build
 from ..utils.device import resolve_device
+from ..utils.profiling import recording
 from .mesh import Mesh, sharded_train_prescribe_step
 
 # the slots of this process, recorded by init_distributed (the counterpart
@@ -139,9 +141,9 @@ def make_multihost_mesh(ep: int | None = None, n_total: int | None = None,
                 group=dist.group.WORLD, rank=rank)
 
 
-def _launches() -> dict:
-    from ..ops.cuda import ekf3_kernel, ekf6_kernel
-    return {"ekf3": ekf3_kernel.launches, "ekf6": ekf6_kernel.launches}
+def _launches(rec) -> dict:
+    """The EKS kernels' launches in the recording ``rec``."""
+    return {k: build.launches(rec, k) for k in ("ekf3", "ekf6")}
 
 
 def _worker(out_path: str, coordinator: str, num_processes: int,
@@ -154,8 +156,11 @@ def _worker(out_path: str, coordinator: str, num_processes: int,
                           [device] * local_devices, timeout=timeout)
     try:
         mesh = make_multihost_mesh(ep=local_devices)
-        out = sharded_train_prescribe_step(mesh, R=R, E=E, T_hist=T_hist,
-                                           horizon=horizon, backend=backend)
+        with recording() as rec:
+            out = sharded_train_prescribe_step(mesh, R=R, E=E,
+                                               T_hist=T_hist,
+                                               horizon=horizon,
+                                               backend=backend)
         J0 = out["J0"].cpu().numpy()
         a2 = out["a2"].cpu().numpy()
         # every process ends with the full (E, R) surface (the kernel
@@ -168,7 +173,7 @@ def _worker(out_path: str, coordinator: str, num_processes: int,
         print(f"[worker {process_id}] backend={pg} mesh={mesh.shape} "
               f"local={len(mesh.local_slots())}/{mesh.size} J0 {J0.shape} "
               f"finite={bool(np.isfinite(J0).all())} "
-              f"launches={_launches()}", flush=True)
+              f"launches={_launches(rec)}", flush=True)
         if process_id == 0:
             np.savez(out_path, J0=J0, a2=a2)
         dist.barrier()
@@ -183,9 +188,10 @@ def _reference(out_path: str, n_devices: int, ep: int, R: int, E: int,
     grid = np.empty(n_devices, dtype=object)
     grid[:] = [resolve_device(device)] * n_devices
     mesh = Mesh(grid.reshape(n_devices // ep, ep))
-    out = sharded_train_prescribe_step(mesh, R=R, E=E, T_hist=T_hist,
-                                       horizon=horizon, backend=backend)
-    print(f"[reference] mesh={mesh.shape} launches={_launches()}",
+    with recording() as rec:
+        out = sharded_train_prescribe_step(mesh, R=R, E=E, T_hist=T_hist,
+                                           horizon=horizon, backend=backend)
+    print(f"[reference] mesh={mesh.shape} launches={_launches(rec)}",
           flush=True)
     np.savez(out_path, J0=out["J0"].cpu().numpy(),
              a2=out["a2"].cpu().numpy())

@@ -43,10 +43,11 @@ an epsilon chunk) > ``pareto.ekf6``, ``pareto.rollout``, ``pareto.score``;
 ``nnls.outer``, ``nnls.inner`` and ``nnls.intercept``, on the card the
 kernel's ``nnls.launches`` and its per-problem iterations summed over the
 problems, ``nnls.lane_outer``, ``nnls.lane_inner`` and
-``nnls.lane_intercept``; ``lasso.sweeps``; the EKS kernels' launches on the
-card, ``ekf3.launches``, ``ekf6.launches`` and ``ekf6.lanes``; the
-rollout kernel's, ``rollout.launches`` (ops/cuda/rollout_kernel.py); and the
-sweep's ``ekf6.costate_nonfinite`` (pipelines/core.py), the smoothed
+``nnls.lane_intercept``; ``lasso.sweeps``; every hand-written kernel's
+launches on the card, ``<kernel>.launches`` (ops/cuda/build.launch counts
+them: ``ekf3``, ``ekf6``, ``nnls``, ``rollout``, ``stencil``,
+``pairwise``, ``roofline`` and ``newcase_ekf``), and ``ekf6.lanes``; and
+the sweep's ``ekf6.costate_nonfinite`` (pipelines/core.py), the smoothed
 costates that are not finite, summed at the recording's close.
 """
 

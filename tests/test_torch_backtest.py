@@ -21,11 +21,12 @@ from epidemicmodeling_tpu.pipelines import PipelineConfig as JaxConfig
 from epidemicmodeling_tpu.pipelines.forecast_quality import \
     forecast_quality_assessment as jax_backtest
 
-from epidemicmodeling_torch.ops.cuda import ekf3_kernel
+from epidemicmodeling_torch.ops.cuda import build, ekf3_kernel
 from epidemicmodeling_torch.parallel import make_mesh
 from epidemicmodeling_torch.pipelines import (PipelineConfig,
                                               forecast_quality_assessment)
 from epidemicmodeling_torch.pipelines.forecast_quality import _nanmedian
+from epidemicmodeling_torch.utils.profiling import recording
 
 TOL = dict(rtol=1e-9, atol=1e-12)
 FIELDS = ("est_error_plus", "est_error_smooth", "mean_error_smooth",
@@ -33,14 +34,6 @@ FIELDS = ("est_error_plus", "est_error_smooth", "mean_error_smooth",
 # (num_forecast_days, max_look_ahead_days): more starts than horizons, and
 # fewer (every start then enters the aggregates)
 SHAPES = {"S>=H": (30, 20), "S<H": (12, 20)}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    prev = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(prev)
 
 
 @pytest.fixture(scope="module")
@@ -72,11 +65,11 @@ def jax_results(batch):
 @pytest.mark.parametrize("shape", list(SHAPES))
 @pytest.mark.parametrize("backend", ["lanes", "pallas"])
 def test_backtest_matches_jax(batch, jax_results, backend, shape):
-    before = ekf3_kernel.launches
-    got = forecast_quality_assessment(
-        batch, cfg=PipelineConfig(backend=backend), dtype=torch.float64,
-        device="cpu", **_kw(shape))
-    assert ekf3_kernel.launches == before     # plain versions on the CPU
+    with recording() as rec:
+        got = forecast_quality_assessment(
+            batch, cfg=PipelineConfig(backend=backend), dtype=torch.float64,
+            device="cpu", **_kw(shape))
+    assert build.launches(rec, "ekf3") == 0   # plain versions on the CPU
     ref = jax_results[shape]
     S, H = SHAPES[shape]
     assert tuple(got.est_error_smooth.shape) == (3, S, H)

@@ -30,14 +30,6 @@ from epidemicmodeling_torch.pipelines.xprize_cli import main
 TOL = dict(rtol=1e-9, atol=1e-12)
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    prev = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(prev)
-
-
 @pytest.fixture(scope="module")
 def tmp(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("cli")
@@ -168,7 +160,7 @@ def test_vmap_prescriptions_are_byte_identical(tmp):
                                **TOL)
 
 
-def test_cli_runs_as_a_module():
+def test_cli_runs_as_a_module(one_thread_children):
     out = subprocess.run(
         [sys.executable, "-m", "epidemicmodeling_torch.pipelines.xprize_cli",
          "--help"], capture_output=True, text=True, timeout=120)

@@ -41,6 +41,7 @@ from epidemicmodeling_torch.models import SIAlphaParams
 from epidemicmodeling_torch.ops.cuda import build
 from epidemicmodeling_torch.pipelines.prescribe import \
     new_case_ekf_optimal_npi
+from epidemicmodeling_torch.utils.profiling import recording
 from tests._torch_helpers import deploy_inputs, deploy_sweep_args
 from tests.test_deploy import build_case
 
@@ -455,11 +456,11 @@ def test_kernel_wrapper_runs_the_plain_version_on_cpu_tensors():
     args = deploy_sweep_args(eps)
     d = native.native_inputs(*(args[i] for i in (0, 1, 3, 5, 6, 7, 8, 9,
                                                   10)))
-    before = native.launches
-    got = native.newcase_ekf_sweep(native.to_device(d, "cpu"),
-                                   torch.from_numpy(eps), T_HIST,
-                                   torch.from_numpy(args[11]), 0.9)
-    assert native.launches == before
+    with recording() as rec:
+        got = native.newcase_ekf_sweep(native.to_device(d, "cpu"),
+                                       torch.from_numpy(eps), T_HIST,
+                                       torch.from_numpy(args[11]), 0.9)
+    assert build.launches(rec, "newcase_ekf") == 0
     assert set(got) == {"U_OPT_SMOOTH", "J0", "J1"}
     ref = newcase_ekf_pareto_sweep_native(*args, beta_ekf=0.9, device="cpu")
     np.testing.assert_array_equal(got["U_OPT_SMOOTH"].numpy(),

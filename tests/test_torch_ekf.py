@@ -40,14 +40,6 @@ from epidemicmodeling_torch.ops.ekf_bl import ekf_smoother_bl
 from tests._torch_helpers import make_inputs, scaled_err
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    prev = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(prev)
-
-
 def _torch(d):
     return {k: ({kk: torch.from_numpy(np.array(vv)) for kk, vv in v.items()}
                 if isinstance(v, dict) else torch.from_numpy(np.array(v)))

@@ -147,7 +147,7 @@ def _run_ekf3(lib, args, dtype, beta, obs_type):
     g = ekf3_kernel.ekf3_geometry(T, B, u.element_size())
     hist = (torch.empty((T, ekf3_kernel.REC, B), dtype=dtype)
             if g.hist_floats else None)
-    entry = ekf3_kernel.card_entry("ekf3_smoother", dtype)
+    entry = build.instance("ekf3_smoother", dtype)
     code = getattr(lib, entry)(
         *(_ptr(a) for a in args[:8]), *(_ptr(o) for o in outs), _ptr(hist),
         T, B, 0.995, int(obs_type == "TOTALCASES"), beta, 1.0 - beta, 21,
@@ -164,8 +164,8 @@ def _run_ekf6(lib, args, dtype, beta, obs_type):
     e = lambda *shape: torch.empty(shape, dtype=dtype)
     S_MINUS, S_PLUS, S_SMOOTH = e(T, 6, B), e(T, 6, B), e(T, 6, B)
     P_MINUS, P_PLUS, U_SM = e(T, 21, B), e(T, 21, B), e(T, 12, B)
-    fwd = getattr(lib, ekf3_kernel.card_entry("ekf6_forward", dtype))
-    bwd = getattr(lib, ekf3_kernel.card_entry("ekf6_backward", dtype))
+    fwd = getattr(lib, build.instance("ekf6_forward", dtype))
+    bwd = getattr(lib, build.instance("ekf6_backward", dtype))
     assert fwd(*(_ptr(a) for a in args[:7]), _ptr(S_MINUS), _ptr(S_PLUS),
                _ptr(P_MINUS), _ptr(P_PLUS), T, B, 0.995,
                int(obs_type == "TOTALCASES"), beta, 1.0 - beta, 21,

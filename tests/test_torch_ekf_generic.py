@@ -48,14 +48,6 @@ SYSTEMS = {"NEWCASES": (si_alpha_ekf_system, jax_sia),
            "costate": (si_alpha_costate_ekf_system, jax_costate)}
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    prev = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(prev)
-
-
 def _t(a):
     return torch.tensor(np.asarray(a, float))
 

@@ -537,19 +537,17 @@ def test_driver_raises_without_a_card(name, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("name", ["rt_comparison", "spatial_sims"])
-def test_module_entry_takes_the_device_option(name, tmp_path):
+def test_module_entry_takes_the_device_option(name, tmp_path,
+                                              one_thread_children):
     """``python -m`` with ``--device cpu`` prints what main prints (the
     split_device and the argparse entries); without it, on a machine with
     no card, it fails with "no CUDA device"."""
     import subprocess
     root = os.path.join(os.path.dirname(__file__), "..")
-    # one thread: beside busy test workers, a child spinning a thread on
-    # every core runs the spatial driver's ~10 s for minutes
     run = lambda *a: subprocess.run(
         [sys.executable, "-m", f"epidemicmodeling_torch.examples.{name}",
          *a], cwd=tmp_path, capture_output=True, text=True, timeout=300,
-        env=dict(os.environ, PYTHONPATH=os.path.abspath(root),
-                 OMP_NUM_THREADS="1"))
+        env=dict(os.environ, PYTHONPATH=os.path.abspath(root)))
     out = run("--device", "cpu")
     assert out.returncode == 0, out.stderr
     lines = out.stdout.splitlines()

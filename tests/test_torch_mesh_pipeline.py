@@ -44,14 +44,6 @@ from epidemicmodeling_torch.pipelines.xprize_cli import main
 TOL = dict(rtol=1e-9, atol=1e-12)
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    prev = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(prev)
-
-
 def _region_batches(n_regions, n_days, t_train, horizon, seed):
     _, _, truth = synthetic_oxford_frame(n_regions=n_regions, n_days=n_days,
                                          seed=seed)

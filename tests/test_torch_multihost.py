@@ -13,7 +13,8 @@ from epidemicmodeling_torch.parallel.multihost import run_multihost_dryrun
 
 
 @pytest.mark.parametrize("backend", ["lanes", "pallas"])
-def test_multihost_dryrun_matches_single_process(backend):
+def test_multihost_dryrun_matches_single_process(backend,
+                                                 one_thread_children):
     out = run_multihost_dryrun(n_devices=4, n_processes=2, R=4, E=4,
                                T_hist=32, horizon=8, backend=backend,
                                timeout=240, verbose=False, device="cpu")

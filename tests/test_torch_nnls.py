@@ -24,14 +24,6 @@ from epidemicmodeling_torch.utils.profiling import recording
 TOL = dict(rtol=1e-9, atol=1e-12)
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    prev = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(prev)
-
-
 def problems(seed, R=24, n=40, p=12):
     """R problems: half NPI-gap designs (integer levels below the codebook
     maxima) against a smoothed-alpha-like target, half gaussian designs

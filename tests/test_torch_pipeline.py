@@ -35,14 +35,6 @@ TOL = dict(rtol=1e-9, atol=1e-12)
 COMMON = dict(smoother_gain="solve", pareto_chunk=2, num_monte_carlo=16)
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    prev = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(prev)
-
-
 @pytest.fixture(scope="module")
 def slice_inputs():
     _, _, truth = synthetic_oxford_frame(n_regions=3, n_days=T_HIST + HORIZON,

@@ -13,19 +13,14 @@ import torch
 from epidemicmodeling_torch.control import epsilon_grid
 from epidemicmodeling_torch.control.pareto import random_npi_schedules
 from epidemicmodeling_torch.data import NPI_MAXES_DEFAULT
-from epidemicmodeling_torch.ops.cuda import ekf3_kernel, ekf6_kernel
+from epidemicmodeling_torch.ops.cuda import (build, ekf3_kernel, ekf6_kernel,
+                                             nnls_kernel, rollout_kernel,
+                                             stencil_kernel)
 from epidemicmodeling_torch.pipelines import PipelineConfig
 from epidemicmodeling_torch.pipelines.train_predict_prescribe import \
     run_pipeline
 from epidemicmodeling_torch.utils.profiling import recording
 from tests._torch_helpers import reference_gaps, small_region_inputs
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    prev = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(prev)
 
 
 # ------------------------------------------- the request against the reference
@@ -130,11 +125,20 @@ def test_reference_gaps_see_a_planted_fault(f64_request, fault):
 @pytest.mark.parametrize("dtype,suffix", [(torch.float32, ""),
                                           (torch.float64, "_f64")])
 @pytest.mark.parametrize("entry", ["ekf3_smoother", "ekf6_forward",
-                                   "ekf6_backward"])
+                                   "ekf6_backward", "nnls_intercept",
+                                   "nnls_masked_solve", "rollout",
+                                   "stencil_rollout"])
 def test_card_entry_is_the_callers_precision(entry, dtype, suffix):
-    name = ekf3_kernel.card_entry(entry, dtype)
+    """build.instance picks the C entry of the caller's precision, one its
+    wrapper declares. The EKS kernels' float entries have no suffix; every
+    other entry carries its instance's, _f32 or _f64."""
+    name = build.instance(entry, dtype)
+    if not entry.startswith("ekf"):
+        suffix = "_f32" if dtype == torch.float32 else "_f64"
     assert name == entry + suffix
-    sigs = {**ekf3_kernel._SIGNATURES, **ekf6_kernel._SIGNATURES}
+    sigs = {**ekf3_kernel._SIGNATURES, **ekf6_kernel._SIGNATURES,
+            **nnls_kernel._SIGNATURES, **rollout_kernel._SIGNATURES,
+            **stencil_kernel._SIGNATURES}
     floats = [a for a in sigs[name] if a in (ekf3_kernel._F,
                                              ekf3_kernel._D)]
     # the scalars of an entry are of its instance's width
@@ -146,7 +150,7 @@ def test_card_entry_is_the_callers_precision(entry, dtype, suffix):
                                    torch.int32, torch.complex64])
 def test_card_entry_refuses_other_dtypes(dtype):
     with pytest.raises(ValueError, match="float32 or float64"):
-        ekf3_kernel.card_entry("ekf3_smoother", dtype)
+        build.instance("ekf3_smoother", dtype)
 
 
 def _pipeline(dtype, bt, bf, actual, T_hist=60, n_eps=8):

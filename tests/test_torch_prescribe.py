@@ -51,14 +51,6 @@ TOL = dict(rtol=1e-9, atol=1e-12)
 U_MAX = np.array([3, 3, 2, 4, 2, 3, 2, 4, 2, 3, 2, 4], float)
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    prev = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(prev)
-
-
 def _ar_series(seed, p=8, T=240):
     """A stable AR(p) series (random reflection coefficients |k| < 0.9
     through the Levinson step-up, as tests/test_ar_prescribe.py draws

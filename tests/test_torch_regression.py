@@ -32,14 +32,6 @@ LASSO_TOL = dict(rtol=1e-9, atol=1e-10)
 ROBUST_TOL = dict(rtol=1e-9, atol=1e-12)
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    prev = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(prev)
-
-
 def _npi_problems(R, n, seed, outliers=False):
     """R regression problems of the train stage's form: integer NPI gaps
     (u_max - u) against a smooth contact rate, no column constant."""

@@ -29,6 +29,7 @@ import torch
 from epidemicmodeling_torch.ops.cuda import build, rollout_kernel
 from epidemicmodeling_torch.ops.cuda.rollout_kernel import (entry_args,
                                                             rollout_plain)
+from epidemicmodeling_torch.utils.profiling import recording
 from tests._torch_helpers import npi_levels, rollout_params
 from tests.test_torch_ekf_emulated import _EMULATION, _LAUNCH
 
@@ -133,7 +134,7 @@ def test_rollout_source_matches_plain(emulated, case, dtype):
     out_k, out_p = _outs(spec, u), _outs(spec, u)
     G, R = u.shape[:2]
     cases = torch.full((G, R), -7.0, dtype=dtype)
-    entry = getattr(emulated, f"rollout_{rollout_kernel._SUFFIX[dtype]}")
+    entry = getattr(emulated, build.instance("rollout", dtype))
     assert entry(*entry_args(s0, p, u, noise, out_k, cases), None) == 0
     want = rollout_plain(s0, p, u, noise, out_p)
     assert want.dtype == dtype and want.shape == (G, R)
@@ -155,14 +156,13 @@ def test_rollout_source_matches_plain(emulated, case, dtype):
 
 
 def test_rollout_routes_cpu_tensors_to_the_plain_version():
-    """rollout() on CPU tensors is rollout_plain, and the launch counter
-    does not move; the kernel's route refuses CPU tensors and other
-    dtypes."""
+    """rollout() on CPU tensors is rollout_plain, and counts no launch; the
+    kernel's route refuses CPU tensors and other dtypes."""
     s0, p, u, noise, _ = _case("noise", torch.float64)
-    before = rollout_kernel.launches
-    got = rollout_kernel.rollout(s0, p, u, noise)
+    with recording() as rec:
+        got = rollout_kernel.rollout(s0, p, u, noise)
     assert torch.equal(got, rollout_plain(s0, p, u, noise))
-    assert rollout_kernel.launches == before
+    assert build.launches(rec, "rollout") == 0
     with pytest.raises(ValueError, match="CUDA"):
         rollout_kernel.rollout_cuda(s0, p, u, noise)
     half = {k: v.half() for k, v in p.items()}

@@ -27,7 +27,8 @@ import pytest
 import torch
 
 from chip_smoke import copy_check_sizes
-from epidemicmodeling_torch.ops.cuda import roofline_kernel as rk
+from epidemicmodeling_torch.ops.cuda import build, roofline_kernel as rk
+from epidemicmodeling_torch.utils.profiling import recording
 
 SOURCE = (Path(rk.__file__).resolve().parents[2] / "csrc"
           / "roofline.cu").read_text()
@@ -158,12 +159,12 @@ def test_copy_geometry_refuses_what_the_kernel_cannot_take(n):
 def test_copy_plus_one_on_the_cpu_is_x_plus_one(n):
     x = torch.from_numpy(np.random.default_rng(n).uniform(
         -1e3, 1e3, n).astype(np.float32))
-    before = rk.launches
-    got = rk.copy_plus_one(x)
+    with recording() as rec:
+        got = rk.copy_plus_one(x)
     assert got.dtype == torch.float32 and got.device.type == "cpu"
     assert torch.equal(got, x + 1)
     assert np.array_equal(got.numpy(), x.numpy() + np.float32(1))
-    assert rk.launches == before      # the plain version counts no launch
+    assert build.launches(rec, "roofline") == 0   # the plain version's
 
 
 def test_fma_chain_on_the_cpu_within_the_kernels_rounding():
@@ -177,9 +178,9 @@ def test_fma_chain_on_the_cpu_within_the_kernels_rounding():
     for _ in range(rk.DEPTH):
         emu = (emu.astype(np.float64) * rk.FMA_A + rk.FMA_B).astype(
             np.float32)
-    before = rk.launches
-    got = rk.fma_chain(torch.from_numpy(x))
-    assert got.dtype == torch.float32 and rk.launches == before
+    with recording() as rec:
+        got = rk.fma_chain(torch.from_numpy(x))
+    assert got.dtype == torch.float32 and build.launches(rec, "roofline") == 0
     rel = np.abs(got.numpy().astype(np.float64) - emu) / np.abs(emu)
     assert rel.max() <= (rk.DEPTH + 1) * 2.0 ** -24
     # the chain moved every element: x a**512 + b (a**512 - 1) / (a - 1)

@@ -5,11 +5,16 @@ tree of its stages, and host syncs that cover the NNLS's iterations; under
 torch.profiler the spans are host ranges around the operators they hold.
 CPU tensors take the NNLS's plain version (its counters exactly as before);
 other devices take the kernel's route, which refuses what it cannot take;
-counts deferred to the recording's close are summed there.
-The benchmark's readers of them are tested in benchmark/tests/."""
+counts deferred to the recording's close are summed there; every kernel's
+launches count in the recording in force (ops/cuda/build.launch, on a
+stand-in library). The benchmark's readers of them are tested in
+benchmark/tests/."""
 
+import contextlib
+import ctypes
 import json
 import tracemalloc
+import types
 
 import numpy as np
 import pytest
@@ -22,7 +27,7 @@ from epidemicmodeling_torch.data import (NPI_MAXES_DEFAULT,
                                          synthetic_oxford_frame)
 from epidemicmodeling_torch.pipelines import (PipelineConfig,
                                               forecast_quality_assessment)
-from epidemicmodeling_torch.ops.cuda import nnls_kernel
+from epidemicmodeling_torch.ops.cuda import build, nnls_kernel
 from epidemicmodeling_torch.regression.nnls import nnls, nnls_with_intercept
 from epidemicmodeling_torch.utils import profiling
 from epidemicmodeling_torch.utils.profiling import (StageTimer, count,
@@ -38,14 +43,6 @@ TREE = [("backtest", None), ("backtest.train", "backtest"),
         ("train.ekf3", "backtest.train"),
         ("train.regress", "backtest.train"), ("backtest.lanes", "backtest"),
         ("backtest.ekf3", "backtest"), ("backtest.errors", "backtest")]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    prev = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(prev)
 
 
 @pytest.fixture(scope="module")
@@ -297,3 +294,43 @@ def test_a_recording_inside_another_takes_the_blocks_records():
     assert outer.counters == {"n": 2}
     assert [s["name"] for s in inner.spans] == ["inside"]
     assert inner.counters == {"n": 2} and inner.requests == 1
+
+
+class StandInLibrary:
+    """A kernel library's stand-in: each entry records its arguments and
+    returns ``code`` (0, or the CUDA error it reports)."""
+
+    def __init__(self):
+        self.code, self.calls = 0, []
+
+    def __getattr__(self, entry):
+        if entry.endswith("_error_string"):
+            return lambda code: b"stand-in error"
+        return lambda *args: self.calls.append((entry, args)) or self.code
+
+
+@pytest.mark.parametrize("kernel", list(build.SOURCES))
+def test_launches_count_in_the_recording_in_force(kernel, monkeypatch):
+    """build.launch calls the entry with the device's current stream last
+    and counts the launch as <kernel>.launches in the recording in force:
+    nothing with none in force, n launches when told (a ctypes int the
+    entry wrote included), none when the entry returns a CUDA error, which
+    raises."""
+    lib = StandInLibrary()
+    monkeypatch.setitem(build._loaded, kernel, lib)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device: types.SimpleNamespace(cuda_stream=7))
+    build.launch(kernel, {}, "entry", "cuda:0", 1, 2)
+    assert profiling._REC is None and lib.calls == [("entry", (1, 2, 7))]
+    with recording() as rec:
+        build.launch(kernel, {}, "entry", "cuda:0", 3)
+        build.launch(kernel, {}, "entry", "cuda:0", n=0)
+        build.launch(kernel, {}, "entry", "cuda:0", n=ctypes.c_int(4))
+        lib.code = 700
+        with pytest.raises(RuntimeError, match="entry failed: CUDA error "
+                                               "700"):
+            build.launch(kernel, {}, "entry", "cuda:0")
+    assert rec.counters == {f"{kernel}.launches": 5}
+    assert build.launches(rec, kernel) == 5 and len(lib.calls) == 5
